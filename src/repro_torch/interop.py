@@ -1,0 +1,43 @@
+"""Carry the reference's data across to the port.
+
+For this system the "weights" are the graph and the plane state.  The
+reference keeps ``LocalGraph`` fields as uint32/int32/bool arrays and
+plane words as uint32; the port keeps the same bits in torch tensors
+(plane words as int32).  The functions here take and give numpy arrays,
+so neither package imports the other.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.bfs_local import FIELDS, LocalGraph
+from repro_torch.device import resolve_device
+
+
+def local_graph_from_numpy(fields: dict[str, np.ndarray], n: int, n_pad: int,
+                           device=None) -> LocalGraph:
+    """A port ``LocalGraph`` from the reference's fields (``np.asarray``
+    of each), on ``device`` (None = the CUDA card)."""
+    missing = [k for k in FIELDS if k not in fields]
+    if missing:
+        raise ValueError(f"missing LocalGraph fields: {missing}")
+    dev = resolve_device(device)
+    out = {}
+    for k in FIELDS:
+        dtype = np.bool_ if k == "in_seg_first" else np.int32
+        # a copy: the reference's arrays come back read-only
+        out[k] = torch.from_numpy(np.array(fields[k], dtype=dtype)).to(dev)
+    return LocalGraph(n=int(n), n_pad=int(n_pad), **out)
+
+
+def planes_from_numpy(words: np.ndarray, device=None) -> torch.Tensor:
+    """uint32 plane words -> int32 tensor with the same bits."""
+    w = np.ascontiguousarray(np.asarray(words, dtype=np.uint32))
+    return torch.from_numpy(w.view(np.int32).copy()).to(
+        resolve_device(device))
+
+
+def planes_to_numpy(words: torch.Tensor) -> np.ndarray:
+    """int32 plane-word tensor -> uint32 numpy words with the same bits."""
+    return words.detach().cpu().contiguous().numpy().view(np.uint32)

@@ -1,0 +1,178 @@
+"""Launch wrappers of the fused P2->P3 propagate kernels.
+
+Port of ``repro.kernels.msbfs_propagate``.  Two kernels, hand-written in
+CUDA C++ for Hopper (``csrc/msbfs_propagate.cu``, whose header note gives
+their bound and design):
+
+* ``msbfs_propagate_planes`` (K1) — whole plane arrays with a trash row;
+  gathers ``frontier[src]`` and scatter-combines into a zeroed candidate
+  array with global atomics, then a P3 + popcount launch.
+* ``msbfs_propagate_planes_tiled`` (K2) — pre-gathered messages bucketed
+  by target row tile; one CTA per tile with the accumulator in shared
+  memory.
+
+A tensor on the CPU goes to the plain version in ``kernels.ref``; a CUDA
+tensor launches the kernel or raises.  Each wrapper counts its launches in
+``LAUNCHES`` (one per call that reaches the card).  Outputs are always
+fresh tensors: the engine retries an overflowed level from its pre-step
+state, which must never be written in place.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import ref
+
+LAUNCHES = {"msbfs_propagate_planes": 0, "msbfs_propagate_planes_tiled": 0}
+
+# The most dynamic shared memory one H100 block may hold (227 KB).
+MAX_SMEM_PER_BLOCK = 232448
+
+_OP_CODE = {"or": 0, "max": 1}
+_LIB = "msbfs_propagate"
+_bound = False
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    from repro_torch.kernels import _build
+    global _bound
+    lib = _build.load(_LIB)
+    if not _bound:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        f = lib.msbfs_propagate_planes_launch
+        f.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, p]
+        f.restype = i
+        f = lib.msbfs_propagate_planes_tiled_launch
+        f.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+        f.restype = i
+        _bound = True
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
+           device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def msbfs_propagate_planes(frontier: torch.Tensor, seen: torch.Tensor,
+                           src: torch.Tensor, tgt: torch.Tensor,
+                           op: str = "or"):
+    """Fused gather/scatter-combine/P3 over packed plane words (K1).
+
+    frontier/seen: int32[n_rows, nw]; the caller appends a trash row
+        (frontier 0, seen all-ones) so invalid edges can point at row
+        ``n_rows - 1`` and contribute nothing to the count.
+    src/tgt: int32[m] in [0, n_rows) (the kernel also skips any slot
+        outside that range).
+    Returns (new, seen_out, count int32[1, 1]) with
+    new = scatter_combine(frontier[src] -> tgt) & ~seen, seen_out =
+    seen | new, count = popcount(new).
+    """
+    if op not in _OP_CODE:
+        raise ValueError(f"op must be one of {sorted(_OP_CODE)}, got {op!r}")
+    if frontier.device.type == "cpu":
+        return ref.msbfs_propagate_planes_ref(frontier, seen, src, tgt, op)
+    dev = frontier.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check("frontier", frontier, torch.int32, 2, dev)
+    _check("seen", seen, torch.int32, 2, dev)
+    _check("src", src, torch.int32, 1, dev)
+    _check("tgt", tgt, torch.int32, 1, dev)
+    if seen.shape != frontier.shape or src.shape != tgt.shape:
+        raise ValueError(f"shape mismatch: frontier {tuple(frontier.shape)} "
+                         f"seen {tuple(seen.shape)} src {tuple(src.shape)} "
+                         f"tgt {tuple(tgt.shape)}")
+    n_rows, nw = frontier.shape
+    new = torch.zeros_like(frontier)          # the candidate accumulator
+    seen_out = torch.empty_like(seen)
+    cnt = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    err = _lib().msbfs_propagate_planes_launch(
+        frontier.data_ptr(), seen.data_ptr(), src.data_ptr(), tgt.data_ptr(),
+        new.data_ptr(), seen_out.data_ptr(), cnt.data_ptr(),
+        int(src.shape[0]), n_rows, nw, _OP_CODE[op], _stream(dev))
+    _raise_on(err, "msbfs_propagate_planes")
+    LAUNCHES["msbfs_propagate_planes"] += 1
+    return new, seen_out, cnt
+
+
+def msbfs_propagate_planes_tiled(seen: torch.Tensor, msg: torch.Tensor,
+                                 tgt: torch.Tensor, chunk_tile: torch.Tensor,
+                                 tile_rows: int, block_edges: int,
+                                 op: str = "or"):
+    """Row-tiled fused scatter-combine/P3 over pre-gathered messages (K2).
+
+    seen: int32[R, nw], R a multiple of ``tile_rows`` (pad rows all-ones).
+    msg: int32[L, nw] message stream, L = NC * block_edges, bucketed so
+        chunk c holds only edges of tile ``chunk_tile[c]`` (pad slots carry
+        msg = 0, the identity of both combines).
+    tgt: int32[L] GLOBAL target rows inside their chunk's tile.
+    chunk_tile: int32[NC] nondecreasing tile id per chunk, covering every
+        tile at least once.
+    Returns (new, seen_out, count int32[1, 1]).
+    """
+    if op not in _OP_CODE:
+        raise ValueError(f"op must be one of {sorted(_OP_CODE)}, got {op!r}")
+    r, nw = seen.shape
+    if tile_rows < 1 or r % tile_rows:
+        raise ValueError(f"rows {r} must be a multiple of tile_rows "
+                         f"{tile_rows}")
+    if msg.shape[0] != chunk_tile.shape[0] * block_edges:
+        raise ValueError(f"msg rows {msg.shape[0]} != chunks "
+                         f"{chunk_tile.shape[0]} x block_edges {block_edges}")
+    if seen.device.type == "cpu":
+        return ref.msbfs_propagate_planes_tiled_ref(
+            seen, msg, tgt, chunk_tile, tile_rows, block_edges, op)
+    dev = seen.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check("seen", seen, torch.int32, 2, dev)
+    _check("msg", msg, torch.int32, 2, dev)
+    _check("tgt", tgt, torch.int32, 1, dev)
+    _check("chunk_tile", chunk_tile, torch.int32, 1, dev)
+    if msg.shape[1] != nw or tgt.shape[0] != msg.shape[0]:
+        raise ValueError(f"shape mismatch: seen {tuple(seen.shape)} msg "
+                         f"{tuple(msg.shape)} tgt {tuple(tgt.shape)}")
+    smem = tile_rows * nw * 4
+    if smem > MAX_SMEM_PER_BLOCK:
+        raise ValueError(f"tile accumulator {smem} B exceeds the "
+                         f"{MAX_SMEM_PER_BLOCK} B a block may hold")
+    num_tiles = r // tile_rows
+    # tile -> first chunk of its run (chunk_tile is nondecreasing)
+    chunk_off = torch.searchsorted(
+        chunk_tile, torch.arange(num_tiles + 1, dtype=torch.int32,
+                                 device=dev)).to(torch.int32)
+    new = torch.empty_like(seen)
+    seen_out = torch.empty_like(seen)
+    cnt = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    err = _lib().msbfs_propagate_planes_tiled_launch(
+        seen.data_ptr(), msg.data_ptr(), tgt.data_ptr(), chunk_off.data_ptr(),
+        new.data_ptr(), seen_out.data_ptr(), cnt.data_ptr(), num_tiles,
+        tile_rows, nw, block_edges, _OP_CODE[op], _stream(dev))
+    _raise_on(err, "msbfs_propagate_planes_tiled")
+    LAUNCHES["msbfs_propagate_planes_tiled"] += 1
+    return new, seen_out, cnt

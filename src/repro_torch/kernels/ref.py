@@ -1,0 +1,99 @@
+"""Plain PyTorch versions of the propagate kernels (port of the propagate
+half of ``repro.kernels.ref``).
+
+They are what a kernel wrapper runs for a tensor on the CPU, and what
+``chip_smoke.py`` holds each CUDA kernel against on the card.  Plane words
+are int32 with the bits of the reference's uint32 words.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.bitmap import (INT32_MIN, _scatter_or_rows, drop_index,
+                                     popcount)
+
+OPS = ("or", "max")
+
+
+def _check_op(op: str) -> None:
+    if op not in OPS:
+        raise ValueError(f"op must be 'or' or 'max', got {op!r}")
+
+
+def _scatter_max_rows(words: torch.Tensor, row_idx: torch.Tensor,
+                      msg: torch.Tensor) -> torch.Tensor:
+    """Unsigned scatter-max: ``words[row_idx[e]] = umax(.., msg[e])``, OOR
+    rows dropped.  int32 holds uint32 bits, so flipping bit 31 maps the
+    unsigned order onto the signed one around ``scatter_reduce("amax")``."""
+    r, nw = words.shape
+    idx = drop_index(row_idx, r)
+    acc = torch.cat([words, torch.zeros((1, nw), dtype=words.dtype,
+                                        device=words.device)]) ^ INT32_MIN
+    acc.scatter_reduce_(0, idx[:, None].expand(-1, nw), msg ^ INT32_MIN,
+                        "amax")
+    return acc[:r] ^ INT32_MIN
+
+
+def scatter_combine(words: torch.Tensor, row_idx: torch.Tensor,
+                    msg: torch.Tensor, op: str) -> torch.Tensor:
+    _check_op(op)
+    if op == "or":
+        return _scatter_or_rows(words, row_idx, msg)
+    return _scatter_max_rows(words, row_idx, msg)
+
+
+def _p3(cand: torch.Tensor, seen: torch.Tensor):
+    nf = cand & ~seen
+    return nf, seen | nf, popcount(nf)
+
+
+def msbfs_propagate_planes_ref(frontier: torch.Tensor, seen: torch.Tensor,
+                               src: torch.Tensor, tgt: torch.Tensor,
+                               op: str = "or"):
+    """Plain version of ``msbfs_propagate_planes`` (kernel K1).
+
+    Same padded-input contract as the kernel (the ops wrapper appends the
+    trash row).  Returns (new, seen_out, count int32[1, 1])."""
+    _check_op(op)
+    msg = frontier[src.to(torch.int64)]
+    cand = scatter_combine(torch.zeros_like(frontier), tgt, msg, op)
+    nf, vout, cnt = _p3(cand, seen)
+    return nf, vout, cnt.reshape(1, 1)
+
+
+def msbfs_propagate_planes_tiled_ref(seen: torch.Tensor, msg: torch.Tensor,
+                                     tgt: torch.Tensor,
+                                     chunk_tile: torch.Tensor,
+                                     tile_rows: int, block_edges: int,
+                                     op: str = "or"):
+    """Plain version of ``msbfs_propagate_planes_tiled`` (kernel K2).
+
+    Slot e belongs to chunk ``e // block_edges`` and so to row tile
+    ``chunk_tile[chunk]``; a target outside that tile is dropped, as the
+    kernel drops it.  Every tile of ``seen`` gets P3 (the bucketing gives
+    each tile at least one chunk).  Returns (new, seen_out, count[1, 1]).
+    """
+    _check_op(op)
+    slot = torch.arange(msg.shape[0], device=msg.device)
+    row0 = chunk_tile.to(torch.int64)[slot // block_edges] * tile_rows
+    local = tgt.to(torch.int64) - row0
+    rows = torch.where((local >= 0) & (local < tile_rows), tgt.to(torch.int64),
+                       -1)
+    cand = scatter_combine(torch.zeros_like(seen), rows, msg, op)
+    nf, vout, cnt = _p3(cand, seen)
+    return nf, vout, cnt.reshape(1, 1)
+
+
+def msbfs_propagate_msgs_ref(seen: torch.Tensor, msg: torch.Tensor,
+                             tgt: torch.Tensor, valid: torch.Tensor,
+                             op: str = "or"):
+    """Unpadded msgs-form semantics: scatter-combine ``msg[e]`` into row
+    ``tgt[e]`` for every valid in-range edge, then P3.  Returns (new,
+    seen_out, count scalar)."""
+    _check_op(op)
+    n = seen.shape[0]
+    ok = valid & (tgt >= 0) & (tgt < n)
+    msg = torch.where(ok[:, None], msg, 0)
+    cand = scatter_combine(torch.zeros_like(seen), torch.where(ok, tgt, n),
+                           msg, op)
+    return _p3(cand, seen)
