@@ -263,8 +263,7 @@ def phase_real(graph: str, batch: int, seed: int, dev) -> dict:
         m = int(src.shape[0])
         be = ops._auto_block_edges(m, nw)
         plan = ops.propagate_plan(n, nw)
-        tr = plan["tile_rows"] if plan["tiled"] else ops._auto_tile_rows(
-            nw, ops.PROPAGATE_SMEM_BYTES)
+        tr = plan["tile_rows"] if plan["tiled"] else ops._auto_tile_rows(nw)
         k1 = whole_inputs(frontier, seen, src, tgt, valid, be)
         k2 = tiled_inputs(frontier, seen, src, tgt, valid, tr, be)
         e1 = max(check_k1(k1, op, f"{graph} level {lvl}")

@@ -14,10 +14,10 @@ import torch
 from repro_torch.kernels.msbfs_propagate import (
     MAX_SMEM_PER_BLOCK, msbfs_propagate_planes, msbfs_propagate_planes_tiled)
 
-# Shared-memory budget of one propagate call on an H100, in the place of
-# the reference's 2 MiB VMEM budget (PROPAGATE_VMEM_BYTES).  It is the
-# most dynamic shared memory one H100 block may hold (227 KB), and it
-# plays the reference's three roles:
+# The propagate's shared-memory budget is ``MAX_SMEM_PER_BLOCK``, the most
+# dynamic shared memory one H100 block may hold (227 KB), in the place of
+# the reference's 2 MiB VMEM budget (PROPAGATE_VMEM_BYTES).  It plays the
+# reference's three roles:
 #  * whole vs tiled: the whole-array kernel is planned only when all 4
 #    plane arrays would fit one block's shared memory, i.e. when the graph
 #    is so small that one tile would hold it (small graphs, few launches);
@@ -27,7 +27,6 @@ from repro_torch.kernels.msbfs_propagate import (
 #    B=64 289 tiles, more than two for each of the 132 SMs;
 #  * chunk length: a chunk of messages stays 1/8 of the budget, which
 #    bounds the pad slots the bucketing adds (at most one chunk per tile).
-PROPAGATE_SMEM_BYTES = MAX_SMEM_PER_BLOCK
 
 
 def _plane_footprint_bytes(n_rows: int, nw: int) -> int:
@@ -35,37 +34,35 @@ def _plane_footprint_bytes(n_rows: int, nw: int) -> int:
     return 4 * (n_rows + 1) * nw * 4
 
 
-def _auto_tile_rows(nw: int, smem_bytes: int) -> int:
-    """Tile-size rule: 32 * nw budget bytes per row (see
-    ``PROPAGATE_SMEM_BYTES``), rounded down to a multiple of 8 rows."""
-    return max((smem_bytes // (32 * nw)) // 8 * 8, 8)
+def _auto_tile_rows(nw: int) -> int:
+    """Tile-size rule: 32 * nw budget bytes per row (see the budget note
+    above), rounded down to a multiple of 8 rows."""
+    return max((MAX_SMEM_PER_BLOCK // (32 * nw)) // 8 * 8, 8)
 
 
-def _auto_block_edges(m: int, nw: int, smem_bytes: int | None = None) -> int:
+def _auto_block_edges(m: int, nw: int) -> int:
     """Edge-chunk length of the bucketed message stream: grows with m to
     target <= 256 chunks, capped so one chunk of messages is 1/8 of the
     budget, always a multiple of 1024."""
-    smem = PROPAGATE_SMEM_BYTES if smem_bytes is None else smem_bytes
-    cap = max((smem // (8 * 4 * nw)) // 1024 * 1024, 1024)
+    cap = max((MAX_SMEM_PER_BLOCK // (8 * 4 * nw)) // 1024 * 1024, 1024)
     need = -(-(-(-m // 256)) // 1024) * 1024
     return int(min(max(need, 1024), cap))
 
 
-def propagate_plan(n_rows: int, nw: int, tile_rows: int | None = None,
-                   smem_bytes: int | None = None) -> dict:
+def propagate_plan(n_rows: int, nw: int,
+                   tile_rows: int | None = None) -> dict:
     """Whole-array vs row-tiled selection for ``msbfs_propagate``.
 
     ``tile_rows``: None = auto (tile iff the 4-plane footprint exceeds the
     shared-memory budget), 0 = force whole-array, > 0 = force tiling at
     that size.  Returns dict(tiled, tile_rows, num_tiles, footprint_bytes).
     """
-    smem = PROPAGATE_SMEM_BYTES if smem_bytes is None else smem_bytes
     fp = _plane_footprint_bytes(n_rows, nw)
-    if tile_rows == 0 or (tile_rows is None and fp <= smem):
+    if tile_rows == 0 or (tile_rows is None and fp <= MAX_SMEM_PER_BLOCK):
         return dict(tiled=False, tile_rows=0, num_tiles=1,
                     footprint_bytes=fp)
     if tile_rows is None:
-        tile_rows = _auto_tile_rows(nw, smem)
+        tile_rows = _auto_tile_rows(nw)
     tile_rows = int(tile_rows)
     if tile_rows < 1:
         raise ValueError(f"tile_rows must be >= 1, got {tile_rows}")
@@ -238,7 +235,7 @@ def msbfs_propagate_msgs(seen_w: torch.Tensor, msg: torch.Tensor,
     if block_edges is None:
         block_edges = _auto_block_edges(m, nw)
     if tile_rows is None:
-        tile_rows = min(_auto_tile_rows(nw, PROPAGATE_SMEM_BYTES), n)
+        tile_rows = min(_auto_tile_rows(nw), n)
     tile_rows = int(tile_rows)
     if tile_rows < 1:
         raise ValueError(f"tile_rows must be >= 1, got {tile_rows}")

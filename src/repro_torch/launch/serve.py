@@ -96,12 +96,8 @@ def main(argv=None):
                     help="number of concurrent BFS queries")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
-    ap.add_argument("--tile-rows", type=int, default=None,
-                    help="propagate kernel: omit for auto, 0 = whole-array, "
-                         ">0 = row tiles of that size")
     args = ap.parse_args(argv)
-    out = serve_bfs(args.bfs_graph, args.bfs_batch, device=args.device,
-                    tile_rows=args.tile_rows)
+    out = serve_bfs(args.bfs_graph, args.bfs_batch, device=args.device)
     print(json.dumps(out))
 
 

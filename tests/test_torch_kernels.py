@@ -268,10 +268,9 @@ def test_propagate_plan_semantics():
     small = ops.propagate_plan(100, nw)
     assert small == dict(tiled=False, tile_rows=0, num_tiles=1,
                          footprint_bytes=4 * 101 * nw * 4)
-    big_n = ops.PROPAGATE_SMEM_BYTES            # footprint >> budget
+    big_n = kmod.MAX_SMEM_PER_BLOCK             # footprint >> budget
     big = ops.propagate_plan(big_n, nw)
-    assert big["tiled"] and big["tile_rows"] == ops._auto_tile_rows(
-        nw, ops.PROPAGATE_SMEM_BYTES)
+    assert big["tiled"] and big["tile_rows"] == ops._auto_tile_rows(nw)
     assert big["num_tiles"] == -(-big_n // big["tile_rows"])
     assert big["tile_rows"] % 8 == 0
     assert big["tile_rows"] * nw * 4 <= kmod.MAX_SMEM_PER_BLOCK
@@ -283,15 +282,14 @@ def test_propagate_plan_semantics():
     # rmat20 at B=64: tiled, with more than two tiles per H100 SM
     r20 = ops.propagate_plan(1 << 20, 2)
     assert r20["tiled"] and r20["num_tiles"] > 2 * 132
-    # the same footprint rule as the reference, against its own budget
+    # the same footprint rule as the reference, given the card's budget
     for n_rows in (100, 70000):
-        j = jops.propagate_plan(n_rows, 1, vmem_bytes=1 << 21)
-        t = ops.propagate_plan(n_rows, 1, smem_bytes=1 << 21)
-        assert j == t
+        j = jops.propagate_plan(n_rows, 1, vmem_bytes=kmod.MAX_SMEM_PER_BLOCK)
+        assert j == ops.propagate_plan(n_rows, 1)
 
 
 def test_auto_block_edges():
     for m in (1, 1000, 300_000, 50_000_000):
         be = ops._auto_block_edges(m, 2)
         assert be % 1024 == 0 and be >= 1024
-        assert be == jops._auto_block_edges(m, 2, ops.PROPAGATE_SMEM_BYTES)
+        assert be == jops._auto_block_edges(m, 2, kmod.MAX_SMEM_PER_BLOCK)
