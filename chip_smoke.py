@@ -8,18 +8,34 @@ Needs one CUDA card and nvcc; exits non-zero (printing no result) without
 them.  Phases, each failing the run on any error:
 
   (a) card: name and power limit (nvidia-smi), torch and CUDA versions;
-  (b) build: nvcc builds the propagate kernels from the checkout, timed;
-  (c) kernels against their plain versions ON THE CARD, bit-exact, both
-      combine ops: the adversarial cases of the kernel test suites, then
-      the largest level of a real traversal of --graph at --batch roots,
-      with kernel/plain times and the memory bound of each kernel;
+  (b) build: nvcc builds every kernel source from the checkout, one nvcc
+      per source, all started together, timed;
+  (c) kernels against their plain versions ON THE CARD, bit-exact: the
+      propagate kernels K1/K2 (both combine ops) on the adversarial cases
+      of the kernel test suites, then on every level of a real traversal
+      of --graph at --batch roots; the P3 kernels K3/K4 on adversarial
+      word counts, then on the inputs of every level of a real
+      single-source run (K4) and bool-plane wave (K3); kernel, plain and
+      bound times of each, and the cost of K3's two transposes;
   (d) the serving path: ``serve_bfs(graph, batch)`` (warm-up + timed
       wave, auto kernel plan) with launch counts reset just before; every
       plane is validated Graph500-style on the card and 4 roots against a
       vectorised numpy BFS;
   (e) the same call with ``tile_rows=0`` (the whole-array kernel), whose
       levels must equal (d)'s;
-  (f) one JSON line of per-kernel results;
+  (h) single-source BFS, the paper's metric: ``BFSRunner`` over 64 roots
+      (Graph500's count of search keys, seed 0, non-isolated) after one
+      warm-up root; every root validated Graph500-style and 4 against the
+      numpy BFS; min / median / harmonic-mean GTEPS;
+  (i) the bool-plane baseline ``MultiSourceBFSRunner(packed=False)`` at
+      --batch on (d)'s roots: its levels must equal (d)'s;
+  (j) CC and SSSP through ``serve_bfs(algo=...)``: SSSP distances equal
+      (d)'s levels (unit weights), CC's reach equals (d)'s (--graph is
+      symmetric);
+  (k) integrity: a ``witness`` wave equals (d)'s levels; a wave with one
+      injected frontier bit flip must raise ``IntegrityError``;
+  (f) one JSON line of per-kernel results: K1 and K2 with their launches
+      in (e) and (d), K3 in (i), K4 in (h);
   (g) with --profile only: device time by kernel and the device's idle
       share over one wave of each plan (torch.profiler).
 
@@ -30,9 +46,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -40,20 +58,35 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.core.bfs_local import INF, build_local_graph  # noqa: E402
-from repro_torch.core.vertex_program import MultiSourceBFSRunner  # noqa: E402
+from repro_torch.core.bfs_local import (INF, BFSRunner,  # noqa: E402
+                                        build_local_graph)
+from repro_torch.core.vertex_program import (IntegrityError,  # noqa: E402
+                                             MultiSourceBFSRunner,
+                                             component_labels)
 from repro_torch.graph import edge_sources, get_dataset  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import bitmap_update as kbu  # noqa: E402
 from repro_torch.kernels import msbfs_propagate as kmod  # noqa: E402
 from repro_torch.launch.serve import serve_bfs  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
-SOURCE = "src/repro_torch/kernels/csrc/msbfs_propagate.cu"
+# kernel name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
-    "msbfs_propagate_planes": "src/repro/kernels/msbfs_propagate.py:142",
-    "msbfs_propagate_planes_tiled":
-        "src/repro/kernels/msbfs_propagate.py:254",
+    "msbfs_propagate_planes": (
+        "src/repro_torch/kernels/csrc/msbfs_propagate.cu",
+        "src/repro/kernels/msbfs_propagate.py:142"),
+    "msbfs_propagate_planes_tiled": (
+        "src/repro_torch/kernels/csrc/msbfs_propagate.cu",
+        "src/repro/kernels/msbfs_propagate.py:254"),
+    "bitmap_update_batch": (
+        "src/repro_torch/kernels/csrc/bitmap_update.cu",
+        "src/repro/kernels/bitmap_update.py:59"),
+    "bitmap_update": (
+        "src/repro_torch/kernels/csrc/bitmap_update.cu",
+        "src/repro/kernels/bitmap_update.py:91"),
 }
+SOURCES = ("msbfs_propagate", "bitmap_update")
+SEARCH_KEYS = 64                 # Graph500's count of BFS roots per run
 TILE, BLOCK = 16, 32             # small-case tiling of the kernel tests
 
 
@@ -81,6 +114,15 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def reset_launches() -> None:
+    kmod.reset_launches()
+    kbu.reset_launches()
+
+
+def launches() -> dict:
+    return {**kmod.LAUNCHES, **kbu.LAUNCHES}
 
 
 def assert_same(got, want, what: str) -> int:
@@ -257,7 +299,8 @@ def phase_real(graph: str, batch: int, seed: int, dev) -> dict:
     roots = np.random.default_rng(seed).choice(np.flatnonzero(deg > 0),
                                                batch, replace=False)
     calls = capture_levels(g, roots)
-    per = {name: [] for name in KERNELS}
+    per = {name: [] for name in ("msbfs_propagate_planes",
+                                 "msbfs_propagate_planes_tiled")}
     for lvl, (frontier, seen, src, tgt, valid) in enumerate(calls):
         n, nw = frontier.shape
         m = int(src.shape[0])
@@ -303,6 +346,125 @@ def phase_real(graph: str, batch: int, seed: int, dev) -> dict:
             f"B={batch} wave, both ops bit-exact on each: kernel_ms="
             f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms="
             f"{r['bound_ms']:.4f} (bytes={r['bytes']:.0f}) library_ms=null")
+    return out
+
+
+# -- the P3 kernels K3 and K4 ------------------------------------------------
+
+P3_ODD_W = (1, 31, 127, 129, 8191)          # 8191 is prime
+
+
+def p3_words(shape, seed: int, dev) -> torch.Tensor:
+    """Random int32 words (bit 31 set in about half of them)."""
+    w = np.random.default_rng(seed).integers(0, 2**32, shape,
+                                             dtype=np.uint32)
+    return torch.from_numpy(w.view(np.int32)).to(dev)
+
+
+def check_p3(kernel, plain, cand, vis, what: str) -> int:
+    return assert_same(kernel(cand, vis), plain(cand, vis), what)
+
+
+def phase_p3_small(n_pad: int, batch: int, dev) -> int:
+    """K4 and K3 against their plain versions on odd and prime word
+    counts, all-ones words, bit 31, 4-byte-misaligned views (the scalar
+    path), and at their real sizes: K4 at n_pad / 32 words, K3 at
+    [ceil(batch / 32), n_pad]."""
+    err, cases = 0, 0
+    g_real = -(-batch // 32)
+    for w in P3_ODD_W + (n_pad // 32,):
+        c, v = p3_words((w,), w, dev), p3_words((w,), w + 1, dev)
+        c[: min(w, 5)] = -1
+        err = max(err, check_p3(kbu.bitmap_update, ref.bitmap_update_ref,
+                                c, v, f"K4 w={w}"))
+        if w > 1:
+            err = max(err, assert_same(
+                kbu.bitmap_update(c[1:], v[1:]),
+                ref.bitmap_update_ref(c[1:].clone(), v[1:].clone()),
+                f"K4 misaligned w={w - 1}"))
+        cases += 1
+    for g in sorted({1, 2, 3, g_real}):
+        for w in P3_ODD_W + ((n_pad,) if g == g_real else ()):
+            c = p3_words((g, w), g * w, dev)
+            v = p3_words((g, w), g * w + 1, dev)
+            c[0] = -1                        # an all-ones plane
+            v[-1] = 0                        # a plane with nothing seen
+            err = max(err, check_p3(kbu.bitmap_update_batch,
+                                    ref.bitmap_update_batch_ref, c, v,
+                                    f"K3 g={g} w={w}"))
+            cases += 1
+    full = torch.full((g_real, n_pad), -1, dtype=torch.int32, device=dev)
+    nf, _, cnt = kbu.bitmap_update_batch(full, torch.zeros_like(full))
+    if not bool((cnt == n_pad * 32).all()) or not torch.equal(nf, full):
+        raise AssertionError("K3 all-ones planes: wrong words or counts")
+    torch.cuda.synchronize()
+    log(f"(c) P3 small cases: {cases} cases + misaligned views + all-ones "
+        "planes, K3 and K4 bit-exact")
+    return err
+
+
+def capture_p3(g, root: int, roots: np.ndarray) -> tuple[list, list]:
+    """The inputs of every P3 call of one single-source run from ``root``
+    (K4) and of one bool-plane wave over ``roots`` (K3)."""
+    k4, k3 = [], []
+    orig4, orig3 = ops.fused_frontier_update, ops.fused_frontier_update_batch
+
+    def spy4(cand, vis):
+        k4.append((cand, vis))
+        return orig4(cand, vis)
+
+    def spy3(cand, vis):
+        k3.append((cand, vis))
+        return orig3(cand, vis)
+
+    ops.fused_frontier_update = spy4
+    ops.fused_frontier_update_batch = spy3
+    try:
+        BFSRunner(g).run(root)
+        MultiSourceBFSRunner(g, packed=False).run(roots)
+    finally:
+        ops.fused_frontier_update = orig4
+        ops.fused_frontier_update_batch = orig3
+    return k4, k3
+
+
+def phase_p3_real(g, root: int, roots: np.ndarray) -> dict:
+    """K4 and K3 against their plain versions on every level's real
+    inputs, timed level by level (means over the levels), and the two
+    [n_pad, nw] -> [nw, n_pad] transposes around each K3 call."""
+    k4, k3 = capture_p3(g, root, roots)
+    out, trans_ms = {}, []
+    for name, kern, plain, calls in (
+            ("bitmap_update", kbu.bitmap_update, ref.bitmap_update_ref, k4),
+            ("bitmap_update_batch", kbu.bitmap_update_batch,
+             ref.bitmap_update_batch_ref, k3)):
+        rows = []
+        for lvl, (c, v) in enumerate(calls):
+            e = check_p3(kern, plain, c, v, f"{name} level {lvl}")
+            nbytes = 4 * c.numel() * 4 + 4 * (c.shape[0] if c.dim() == 2
+                                              else 1)
+            rows.append(dict(max_abs_err=e, bytes=nbytes,
+                             bound_ms=bound_ms(nbytes),
+                             ms=time_ms(lambda: kern(c, v), 20),
+                             plain_ms=time_ms(lambda: plain(c, v), 3)))
+            if c.dim() == 2:
+                # the engine's planes come [n_pad, nw]: two copies per call
+                cp, vp = c.T.contiguous(), v.T.contiguous()
+                trans_ms.append(time_ms(
+                    lambda: (cp.T.contiguous(), vp.T.contiguous()), 20))
+        out[name] = {k: float(np.mean([r[k] for r in rows]))
+                     for k in ("ms", "plain_ms", "bound_ms", "bytes")}
+        out[name]["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+        r = out[name]
+        log(f"(c) {name}: mean over the {len(rows)} P3 calls of one "
+            f"{'single-source run' if c.dim() == 1 else 'bool-plane wave'}"
+            f" (shape {tuple(c.shape)}), bit-exact on each: kernel_ms="
+            f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms="
+            f"{r['bound_ms']:.5f} (bytes={r['bytes']:.0f}) library_ms=null")
+    out["transpose_ms"] = float(np.mean(trans_ms))
+    log(f"(c) K3's two input transposes ([n_pad, nw] -> [nw, n_pad], cand "
+        f"and seen): {out['transpose_ms']:.4f} ms per call (mean over "
+        f"{len(trans_ms)} calls)")
     return out
 
 
@@ -366,17 +528,17 @@ def numpy_bfs(indptr: np.ndarray, indices: np.ndarray, root: int
 def phase_serve(graph: str, batch: int, seed: int, dev, tile_rows,
                 label: str) -> dict:
     ds = get_dataset(graph)
-    kmod.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     out = serve_bfs(graph, batch, seed, device=dev, tile_rows=tile_rows,
                     keep_levels=True)
     wall = time.perf_counter() - t0
-    launches = dict(kmod.LAUNCHES)
+    counts = launches()
     roots, levels = out.pop("roots"), out.pop("levels")
     for k in ("traversed_per_plane", "discovery_popcounts"):
         out.pop(k, None)
     log(f"({label}) serve_bfs({graph!r}, {batch}, tile_rows={tile_rows}) "
-        f"wall={wall:.2f}s launches={launches}")
+        f"wall={wall:.2f}s launches={counts}")
     log(f"({label}) " + json.dumps(out))
     if out["host_transfers"] != out["iterations"] + 2:
         raise AssertionError(f"host_transfers {out['host_transfers']} != "
@@ -393,7 +555,124 @@ def phase_serve(graph: str, batch: int, seed: int, dev, tile_rows,
                                  "numpy BFS")
     log(f"({label}) 4 roots equal the numpy BFS "
         f"({time.perf_counter() - t0:.2f}s)")
-    return dict(out=out, launches=launches, levels=levels)
+    return dict(out=out, launches=counts, levels=levels, roots=roots)
+
+
+def phase_sbfs(ds, g, roots: np.ndarray, dev) -> dict:
+    """(h) The paper's metric: one single-source BFS per root, GTEPS each
+    (traversed out-degrees over the run's wall time, the final readback
+    excluded as in the reference)."""
+    runner = BFSRunner(g)
+    reset_launches()
+    runner.run(int(roots[0]))                        # warm-up root
+    results = [runner.run(int(r)) for r in roots]
+    counts = launches()
+    bad = [(int(r), res.host_transfers, res.iterations, res.overflow_retries)
+           for r, res in zip(roots, results)
+           if res.host_transfers != res.iterations + 2 + res.overflow_retries]
+    if bad:
+        raise AssertionError(f"host_transfers != iterations + 2 + overflow "
+                             f"retries for (root, transfers, iterations, "
+                             f"retries) {bad[:4]}")
+    gteps = np.asarray([res.gteps for res in results])
+    iters = [res.iterations for res in results]
+    log(f"(h) BFSRunner on {len(roots)} roots after one warm-up root: "
+        f"launches={counts}")
+    log(f"(h) GTEPS min={gteps.min():.4f} median={np.median(gteps):.4f} "
+        f"harmonic_mean={statistics.harmonic_mean(gteps):.4f} "
+        f"max={gteps.max():.4f}; seconds per root median="
+        f"{np.median([res.seconds for res in results]):.5f}")
+    log(f"(h) levels per root: {iters}; overflow retries: "
+        f"{sum(res.overflow_retries for res in results)}; host_transfers == "
+        "iterations + 2 + overflow retries on every root")
+    levels = np.stack([res.level for res in results])
+    t0 = time.perf_counter()
+    graph500_validate(ds, roots, levels, max(iters), dev)
+    log(f"(h) Graph500 validation of all {len(roots)} roots passed "
+        f"({time.perf_counter() - t0:.2f}s)")
+    for i in range(4):
+        want = numpy_bfs(ds.csr.indptr, ds.csr.indices, int(roots[i]))
+        if not np.array_equal(levels[i].astype(np.int64), want):
+            raise AssertionError(f"root {roots[i]}: single-source levels "
+                                 "differ from the numpy BFS")
+    log("(h) 4 roots equal the numpy BFS")
+    return dict(launches=counts, gteps=gteps)
+
+
+def phase_boolplane(g, roots: np.ndarray, want: np.ndarray, out_deg,
+                    d_teps: float) -> dict:
+    """(i) The bool-plane baseline through the serving entry (warm-up +
+    timed wave) on (d)'s roots; its levels must equal (d)'s."""
+    from repro_torch.launch.serve import bfs_batch
+    runner = MultiSourceBFSRunner(g, packed=False)
+    reset_launches()
+    bfs_batch(roots, engine=runner, out_deg=out_deg)    # warm-up
+    out = bfs_batch(roots, engine=runner, out_deg=out_deg)
+    counts = launches()
+    if not np.array_equal(out.pop("levels"), want):
+        raise AssertionError("bool-plane levels differ from (d)'s")
+    log(f"(i) MultiSourceBFSRunner(packed=False) B={roots.size}: launches="
+        f"{counts}")
+    log(f"(i) wave seconds={out['seconds']} aggregate_teps="
+        f"{out['aggregate_teps']:.4e} (packed wave (d): {d_teps:.4e}); "
+        f"iterations={out['iterations']} host_transfers="
+        f"{out['host_transfers']}; levels equal (d)'s")
+    return dict(launches=counts, out=out)
+
+
+def phase_programs(graph: str, batch: int, seed: int, dev, d: dict) -> None:
+    """(j) CC and SSSP through ``serve_bfs``: SSSP's distances equal (d)'s
+    levels (unit weights); CC's levels and labels equal what (d)'s levels
+    give (the graph is symmetric, so CC traverses the same arcs)."""
+    for algo in ("sssp", "cc"):
+        t0 = time.perf_counter()
+        out = serve_bfs(graph, batch, seed, algo=algo, device=dev,
+                        keep_levels=True)
+        wall = time.perf_counter() - t0
+        roots, levels = out.pop("roots"), out.pop("levels")
+        if not np.array_equal(roots, d["roots"]):
+            raise AssertionError(f"{algo}: roots differ from (d)'s")
+        if not np.array_equal(levels, d["levels"]):
+            raise AssertionError(f"{algo}: value rows differ from (d)'s "
+                                 "levels")
+        if out["host_transfers"] != out["iterations"] + 2:
+            raise AssertionError(f"{algo}: host_transfers != iterations + 2")
+        extra = ""
+        if algo == "cc":
+            labels = component_labels(levels, roots)
+            if not np.array_equal(labels,
+                                  component_labels(d["levels"], roots)):
+                raise AssertionError("cc: labels differ from (d)'s reach")
+            extra = (f" components={out['components']} labelled vertices="
+                     f"{int((labels >= 0).sum())}")
+        log(f"(j) serve_bfs(algo={algo!r}) wall={wall:.2f}s wave seconds="
+            f"{out['seconds']} aggregate_teps={out['aggregate_teps']:.4e} "
+            f"iterations={out['iterations']}{extra}; equal to (d)")
+
+
+def phase_integrity(g, roots: np.ndarray, want: np.ndarray) -> None:
+    """(k) A witness wave equals (d)'s levels; a wave with one frontier
+    bit flipped at level 1 must raise IntegrityError."""
+    runner = MultiSourceBFSRunner(g, integrity="witness")
+    res = runner.run(roots)
+    if not np.array_equal(res.levels, want):
+        raise AssertionError("witness wave levels differ from (d)'s")
+    if res.host_transfers != res.iterations + 2:
+        raise AssertionError("witness wave: host_transfers != iterations + 2")
+    log(f"(k) witness wave: levels equal (d)'s, integrity="
+        f"{json.dumps(runner.last_stats['integrity'])} host_transfers="
+        f"{res.host_transfers} seconds={res.seconds:.4f}")
+    # plane 0's frontier bit at a vertex of level >= 3 (or unreached),
+    # set at level 1: a discovery no edge can explain
+    far = int(np.flatnonzero(want[0] >= 3)[0])
+    runner._corrupt_plane = (1, far, 0)
+    try:
+        runner.run(roots)
+    except IntegrityError as exc:
+        log(f"(k) injected flip (level 1, vertex {far}, plane 0) raised "
+            f"IntegrityError: {exc}")
+    else:
+        raise AssertionError("an injected plane bit flip went undetected")
 
 
 def phase_profile(graph: str, batch: int, seed: int, dev, tile_rows,
@@ -457,17 +736,31 @@ def main(argv=None) -> int:
     log(f"(a) torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    # (b) build
+    # (b) build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    lib = _build.build("msbfs_propagate")
-    log(f"(b) built {lib.name} in {time.perf_counter() - t0:.2f}s")
-    for line in _build.build_logs.get("msbfs_propagate", "").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"(b) ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        libs = list(pool.map(_build.build, SOURCES))
+    log(f"(b) built {', '.join(lib.name for lib in libs)} in "
+        f"{time.perf_counter() - t0:.2f}s")
+    for name in SOURCES:
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"(b) ptxas {name}: {line.strip()}")
+
+    # the graph, its device copy and the roots every phase shares
+    ds = get_dataset(args.graph)
+    g = build_local_graph(ds.csr, ds.csc, device=dev)
+    deg = np.diff(ds.csr.indptr)
+    keys = np.random.default_rng(args.seed).choice(
+        np.flatnonzero(deg > 0), SEARCH_KEYS, replace=False)
+    wave_roots = np.random.default_rng(args.seed).choice(
+        np.flatnonzero(deg > 0), args.batch, replace=False)
 
     # (c) kernels against plain versions
     small_err = phase_small(dev)
     real = phase_real(args.graph, args.batch, args.seed, dev)
+    p3_err = phase_p3_small(g.n_pad, args.batch, dev)
+    real.update(phase_p3_real(g, int(keys[0]), wave_roots))
 
     # (d) serving path, auto plan; (e) whole-array kernel
     d = phase_serve(args.graph, args.batch, args.seed, dev, None, "d")
@@ -475,12 +768,25 @@ def main(argv=None) -> int:
     if not np.array_equal(d["levels"], e["levels"]):
         raise AssertionError("whole-array wave levels differ from the auto "
                              "plan's")
-    launches = {
+    if not np.array_equal(d["roots"], wave_roots):
+        raise AssertionError("serve_bfs drew other roots than expected")
+
+    # (h) single-source BFS; (i) bool-plane; (j) CC, SSSP; (k) integrity
+    h = phase_sbfs(ds, g, keys, dev)
+    i = phase_boolplane(g, wave_roots, d["levels"], deg,
+                        d["out"]["aggregate_teps"])
+    phase_programs(args.graph, args.batch, args.seed, dev, d)
+    phase_integrity(g, wave_roots, d["levels"])
+
+    # each kernel's launches on its own path
+    counts = {
         "msbfs_propagate_planes": e["launches"]["msbfs_propagate_planes"],
         "msbfs_propagate_planes_tiled":
             d["launches"]["msbfs_propagate_planes_tiled"],
+        "bitmap_update_batch": i["launches"]["bitmap_update_batch"],
+        "bitmap_update": h["launches"]["bitmap_update"],
     }
-    for name, count in launches.items():
+    for name, count in counts.items():
         if count <= 0:
             raise AssertionError(f"{name} was never launched on its path")
 
@@ -490,11 +796,15 @@ def main(argv=None) -> int:
 
     # (f) summary
     kernels = []
-    for name, r in real.items():
+    for name, (source, replaces) in KERNELS.items():
+        r = real[name]
+        err = max(r["max_abs_err"],
+                  p3_err if name.startswith("bitmap") else small_err)
+        if err:
+            raise AssertionError(f"{name}: max_abs_err {err}")
         kernels.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=KERNELS[name],
-            launches=launches[name],
-            max_abs_err=max(r["max_abs_err"], small_err), ms=r["ms"],
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=counts[name], max_abs_err=err, ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by="bytes", library_ms=None))
     log(f"(f) total {time.perf_counter() - t_start:.1f}s")

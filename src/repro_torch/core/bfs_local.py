@@ -1,24 +1,28 @@
-"""Shared primitives of the batched engine (port of the shared half of
-``repro.core.bfs_local``).
+"""Single-device BFS (paper Algorithm 2) and the shared primitives of
+the batched engine: PyTorch port of ``repro.core.bfs_local``.
 
 ``LocalGraph`` (device tensors), the static-cap frontier compaction (P1),
 the budgeted neighbour expansion (P2 gather), the ``SV_*`` statvec layout,
-root validation, the TEPS numerator and the pure-Python oracle.  The
-single-source ``BFSRunner`` of the reference is not ported yet.
+root validation, the TEPS numerator and the pure-Python oracle; and the
+single-source pipeline: ``bfs_reference`` (dense edge-parallel steps) and
+``BFSRunner``, the paper's per-root GTEPS engine, whose push and pull
+steps end in the fused P3 update (kernel K4 under ``use_kernels``).
 
 None of the device functions here synchronises with the host: sizes come
 from Python ints (caps and budgets), never from tensor values, so the
-engine keeps its one-fetch-per-level protocol.
+runners keep their one-fetch-per-level protocol.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Protocol, runtime_checkable
 
 import numpy as np
 import torch
 
 from repro_torch.core import bitmap
+from repro_torch.core.scheduler import PUSH, SchedulerConfig, choose_mode_host
 from repro_torch.device import resolve_device
 from repro_torch.graph.csr import CSRGraph, edge_sources
 
@@ -146,6 +150,231 @@ def expand_edges(active: torch.Tensor, indptr: torch.Tensor,
     minus1 = torch.tensor(-1, dtype=torch.int32, device=dev)
     return (torch.where(valid, src, minus1),
             torch.where(valid, nbr, minus1), valid, total)
+
+
+def resolve_use_kernels(g: LocalGraph, use_kernels: bool | None) -> bool:
+    """None -> kernels iff the graph is on CUDA; False on CUDA raises (the
+    plain path, the reference's jnp fallback, is a CPU path only)."""
+    on_cuda = g.device.type == "cuda"
+    if use_kernels is None:
+        return on_cuda
+    if on_cuda and not use_kernels:
+        raise ValueError("use_kernels=False is a CPU path only; a graph on "
+                         "CUDA runs the kernels")
+    return bool(use_kernels)
+
+
+# ---------------------------------------------------------------------------
+# Dense (edge-parallel) steps: O(E) work, the single-source reference.
+# ---------------------------------------------------------------------------
+
+def _dense_step(g: LocalGraph, frontier_w, visited_w):
+    """One level expansion; returns candidate bitmap words (global)."""
+    fmask = bitmap.unpack(frontier_w, g.n_pad)
+    msg = fmask[g.out_src.to(torch.int64)].to(torch.uint8)
+    cand = torch.zeros(g.n_pad, dtype=torch.uint8, device=msg.device)
+    cand.scatter_reduce_(0, g.out_indices.to(torch.int64), msg, "amax")
+    return bitmap.pack(cand.to(torch.bool))
+
+
+def bfs_reference(g: LocalGraph, root: int, max_iters: int | None = None):
+    """Algorithm 2 loop with dense steps.  Returns level int32[n] on the
+    graph's device (the loop condition reads the device every level)."""
+    max_iters = max_iters or g.n_pad
+    frontier = bitmap.from_indices_dense(
+        torch.tensor([root], device=g.device), g.n_pad)
+    visited = frontier
+    level = torch.full((g.n_pad,), INF, dtype=torch.int32, device=g.device)
+    level[root] = 0
+    lvl = 0
+    while lvl < max_iters and int(bitmap.popcount(frontier)) > 0:
+        cand = _dense_step(g, frontier, visited)
+        new = cand & ~visited                 # P3: next |= cand & ~visited
+        visited = visited | new
+        level = torch.where(bitmap.unpack(new, g.n_pad), lvl + 1, level)
+        frontier = new
+        lvl += 1
+    return level[: g.n]
+
+
+# ---------------------------------------------------------------------------
+# Work-efficient gather pipeline (P1 -> P2 -> P3), mirroring the PE stages.
+# ---------------------------------------------------------------------------
+
+def _p3_update(cand_w, visited_w, use_kernels: bool):
+    """P3 result writing: kernel K4 (``kernels.ops``) or the plain body."""
+    if use_kernels:
+        from repro_torch.kernels import ops as kops
+        new, vis2, _ = kops.fused_frontier_update(cand_w, visited_w)
+        return new, vis2
+    new = cand_w & ~visited_w
+    return new, visited_w | new
+
+
+def _statvec(g: LocalGraph, new_w, visited_w, total, overflow):
+    """Fused per-level stats (single-source): one stacked int32[7]."""
+    dev = new_w.device
+    fmask = bitmap.unpack(new_w, g.n_pad)
+    umask = ~bitmap.unpack(visited_w, g.n_pad)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    return torch.stack([
+        fmask.sum(dtype=torch.int32),
+        torch.where(fmask, g.out_deg, zero).sum(dtype=torch.int32),
+        torch.where(umask, g.in_deg, zero).sum(dtype=torch.int32),
+        umask.sum(dtype=torch.int32),
+        torch.as_tensor(total, device=dev).to(torch.int32),
+        torch.as_tensor(overflow, device=dev).to(torch.int32),
+        bitmap.popcount(new_w),
+    ])
+
+
+def _sbfs_init(g: LocalGraph, roots: torch.Tensor):
+    frontier = bitmap.from_indices_dense(roots, g.n_pad)
+    level = torch.full((g.n_pad,), INF, dtype=torch.int32, device=g.device)
+    level[roots[0]] = 0
+    return frontier, frontier, level, _statvec(g, frontier, frontier, 0, 0)
+
+
+def push_step(g: LocalGraph, frontier_w, visited_w, level, lvl: int,
+              budget: int, use_kernels: bool = False):
+    """Push iteration: expand out-lists of frontier, filter by visited.
+
+    Level update and next-level stats are folded in; returns (new,
+    visited, level, statvec); the driver fetches only ``statvec``.
+    Inputs are never written."""
+    fmask = bitmap.unpack(frontier_w, g.n_pad)
+    active, _ = compact_indices(fmask, g.n_pad)
+    _, nbr, valid, total = expand_edges(active, g.out_indptr, g.out_indices,
+                                        budget)
+    unvisited = ~bitmap.test_bits(visited_w, nbr.clamp(min=0)) & valid
+    cand = bitmap.from_indices_dense(torch.where(unvisited, nbr, -1), g.n_pad)
+    new, vis2 = _p3_update(cand, visited_w, use_kernels)
+    level2 = torch.where(bitmap.unpack(new, g.n_pad), lvl + 1, level)
+    return new, vis2, level2, _statvec(g, new, vis2, total, total > budget)
+
+
+def pull_step(g: LocalGraph, frontier_w, visited_w, level, lvl: int,
+              budget: int, use_kernels: bool = False):
+    """Pull iteration: expand in-lists of unvisited, test frontier bit."""
+    umask = ~bitmap.unpack(visited_w, g.n_pad)
+    unvisited, _ = compact_indices(umask, g.n_pad)
+    child, parent, valid, total = expand_edges(unvisited, g.in_indptr,
+                                               g.in_indices, budget)
+    hit = bitmap.test_bits(frontier_w, parent.clamp(min=0)) & valid
+    cand = bitmap.from_indices_dense(torch.where(hit, child, -1), g.n_pad)
+    new, vis2 = _p3_update(cand, visited_w, use_kernels)
+    level2 = torch.where(bitmap.unpack(new, g.n_pad), lvl + 1, level)
+    return new, vis2, level2, _statvec(g, new, vis2, total, total > budget)
+
+
+@dataclasses.dataclass
+class BFSResult:
+    level: np.ndarray
+    iterations: int
+    edges_inspected: int
+    push_iters: int
+    pull_iters: int
+    traversed_edges: int
+    seconds: float
+    host_transfers: int = 0     # blocking device->host fetches during run
+    overflow_retries: int = 0   # levels re-run after a truncated step
+
+    @property
+    def gteps(self) -> float:
+        return self.traversed_edges / max(self.seconds, 1e-12) / 1e9
+
+
+class BFSRunner:
+    """Python-driven hybrid BFS with budgeted gather steps (the paper's
+    per-root GTEPS engine).
+
+    One-sync-per-level driver: every step returns its successor's stats
+    as a stacked int32[7], so the loop makes exactly one blocking
+    device->host transfer per level, one per overflow retry, plus one
+    for the initial frontier and one final level-array readback.
+    ``use_kernels`` takes the reference's ``use_pallas`` place (see
+    :func:`resolve_use_kernels`).
+    """
+
+    def __init__(self, g: LocalGraph, sched: SchedulerConfig | None = None,
+                 init_budget: int = 1 << 15, use_kernels: bool | None = None):
+        self.g = g
+        self.sched = sched or SchedulerConfig()
+        self.init_budget = init_budget
+        self.use_kernels = resolve_use_kernels(g, use_kernels)
+        self._transfers = 0
+        # fetched once here so the GTEPS accounting after each run is not
+        # an extra (uncounted) device->host transfer
+        self._out_deg_np = g.out_deg.cpu().numpy()[: g.n]
+
+    @property
+    def num_vertices(self) -> int:
+        return int(self.g.n)
+
+    @property
+    def out_deg(self) -> np.ndarray:
+        """Out-degrees [n] (the engine protocol's TEPS numerator input)."""
+        return self._out_deg_np
+
+    def _fetch(self, t: torch.Tensor) -> np.ndarray:
+        self._transfers += 1
+        return t.cpu().numpy()
+
+    def run(self, root: int) -> BFSResult:
+        g = self.g
+        root = int(validate_roots(np.asarray([root]), g.n)[0])
+        self._transfers = 0
+        t0 = time.perf_counter()
+        frontier, visited, level, statvec = _sbfs_init(
+            g, torch.tensor([root], device=g.device))
+        sv = self._fetch(statvec)
+        mode = PUSH
+        lvl = 0
+        inspected = 0
+        push_iters = pull_iters = 0
+        overflow_retries = 0
+        # no point budgeting past the whole edge array; the overflow loop
+        # still deepens
+        budget = min(self.init_budget,
+                     max(g.out_indices.shape[0], g.in_indices.shape[0]) + 1)
+        while int(sv[SV_NF]) > 0:
+            mode = choose_mode_host(self.sched, mode, int(sv[SV_NF]),
+                                    int(sv[SV_MF]), int(sv[SV_MU]), g.n,
+                                    int(sv[SV_NU]))
+            step = push_step if mode == PUSH else pull_step
+            need = int(sv[SV_MF]) if mode == PUSH else int(sv[SV_MU])
+            cap = (g.out_indices if mode == PUSH else g.in_indices).shape[0]
+            while budget < min(need, cap + 1):
+                budget *= 2
+            # retry from the PRE-step state: steps never write their inputs
+            state0 = (frontier, visited, level)
+            frontier, visited, level, statvec = step(
+                g, *state0, lvl, budget, self.use_kernels)
+            sv = self._fetch(statvec)
+            while bool(sv[SV_OVERFLOW]):      # HBM-reader overflow: deepen
+                overflow_retries += 1
+                budget *= 2
+                frontier, visited, level, statvec = step(
+                    g, *state0, lvl, budget, self.use_kernels)
+                sv = self._fetch(statvec)
+            lvl += 1
+            inspected += int(sv[SV_TOTAL])
+            if mode == PUSH:
+                push_iters += 1
+            else:
+                pull_iters += 1
+        if g.device.type == "cuda":
+            torch.cuda.synchronize(g.device)
+        dt = time.perf_counter() - t0
+        level_np = self._fetch(level[: g.n])
+        # GTEPS metric per paper §VI-A: sum of outgoing neighbor-list
+        # lengths of all visited vertices; each edge counted once.
+        traversed = count_traversed_edges(self._out_deg_np, level_np)
+        return BFSResult(level=level_np, iterations=lvl,
+                         edges_inspected=inspected, push_iters=push_iters,
+                         pull_iters=pull_iters, traversed_edges=traversed,
+                         seconds=dt, host_transfers=self._transfers,
+                         overflow_retries=overflow_retries)
 
 
 @runtime_checkable

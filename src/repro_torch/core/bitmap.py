@@ -73,6 +73,56 @@ def plane_mask(num_bits: int, device=None) -> torch.Tensor:
     return pack(bits)
 
 
+def zeros(num_bits: int, device=None) -> torch.Tensor:
+    return torch.zeros(num_words(num_bits), dtype=torch.int32, device=device)
+
+
+def from_indices(idx: torch.Tensor, num_bits: int) -> torch.Tensor:
+    """Bitmap with bits ``idx`` set.  Out-of-range indices are ignored."""
+    idx = torch.as_tensor(idx).to(torch.int64)
+    nw = num_words(num_bits)
+    valid = (idx >= 0) & (idx < num_bits)
+    word = torch.where(valid, idx // WORD_BITS, nw)
+    bit = torch.where(valid, _bit_values(idx.device)[idx % WORD_BITS], 0)
+    out = torch.zeros(nw + 1, dtype=torch.int32, device=idx.device)
+    return _scatter_or(out, word, bit)[:-1]
+
+
+def _scatter_or(words: torch.Tensor, word_idx: torch.Tensor,
+                bits: torch.Tensor) -> torch.Tensor:
+    """Scatter bitwise-OR on flat words: ``words[word_idx] |= bits``
+    (duplicates allowed, out-of-range word indices dropped); the row form
+    :func:`_scatter_or_rows` with one word per row."""
+    return _scatter_or_rows(words[:, None], word_idx,
+                            bits.to(torch.int32)[:, None])[:, 0]
+
+
+def from_indices_dense(idx: torch.Tensor, num_bits: int) -> torch.Tensor:
+    """Bitmap from indices via a dense boolean intermediate.  Indices
+    outside ``[0, num_bits)`` (the engine's ``-1`` pad slots) land in a
+    trash slot, as JAX's ``mode="drop"`` drops them."""
+    idx = torch.as_tensor(idx)
+    dense = torch.zeros(num_bits + 1, dtype=torch.bool, device=idx.device)
+    dense[drop_index(idx, num_bits)] = True
+    return pack(dense[:num_bits])
+
+
+def test_bits(words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gathered bit test: bool per index.  The shift is arithmetic on
+    int32, so the ``& 1`` keeps only the tested bit, as the reference's
+    unsigned shift does."""
+    idx = idx.to(torch.int64)
+    w = words[idx // WORD_BITS]
+    return ((w >> (idx % WORD_BITS).to(torch.int32)) & 1).to(torch.bool)
+
+
+def np_unpack(words: np.ndarray, num_bits: int) -> np.ndarray:
+    """Host unpack of int32 or uint32 words (the bits are the same)."""
+    b = np.unpackbits(np.ascontiguousarray(words).view(np.uint8),
+                      bitorder="little")
+    return b[:num_bits].astype(bool)
+
+
 def _popcount_words(words: torch.Tensor) -> torch.Tensor:
     """Elementwise popcount of int32 words (SWAR; masks after each
     arithmetic shift so a set sign bit never leaks into the counts)."""

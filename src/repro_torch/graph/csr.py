@@ -68,6 +68,17 @@ def symmetrize_edges(src: np.ndarray, dst: np.ndarray):
     return np.concatenate([src, dst]), np.concatenate([dst, src])
 
 
+def symmetrize_csr(g: CSRGraph) -> CSRGraph:
+    """Undirected view of a (possibly directed) CSR: every arc gains its
+    reverse, duplicates collapse, self-loops drop (``csr_from_edges``
+    defaults).  The result is its own transpose, which is what the
+    connected-components engine builds on."""
+    src = np.repeat(np.arange(g.num_vertices, dtype=np.int64), g.degrees())
+    dst = g.indices.astype(np.int64)
+    s, d = symmetrize_edges(src, dst)
+    return csr_from_edges(s, d, g.num_vertices)
+
+
 def edge_sources(g: CSRGraph) -> np.ndarray:
     """Per-edge source vertex (src_of_edge[e])."""
     return np.repeat(np.arange(g.num_vertices, dtype=np.int32),

@@ -4,7 +4,12 @@ For this system the "weights" are the graph and the plane state.  The
 reference keeps ``LocalGraph`` fields as uint32/int32/bool arrays and
 plane words as uint32; the port keeps the same bits in torch tensors
 (plane words as int32).  The functions here take and give numpy arrays,
-so neither package imports the other.
+so neither package imports the other.  ``planes_from_numpy`` and
+``planes_to_numpy`` take words of any shape: the batched planes
+``[n_pad, nw]`` and the single-source frontier and visited words
+``[n_pad / 32]``.  Level rows and statvecs (int32[7], or int32[8] with
+integrity checking) are int32 in both packages and need only
+``torch.from_numpy``.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ def local_graph_from_numpy(fields: dict[str, np.ndarray], n: int, n_pad: int,
 
 
 def planes_from_numpy(words: np.ndarray, device=None) -> torch.Tensor:
-    """uint32 plane words -> int32 tensor with the same bits."""
+    """uint32 words (any shape) -> int32 tensor with the same bits."""
     w = np.ascontiguousarray(np.asarray(words, dtype=np.uint32))
     return torch.from_numpy(w.view(np.int32).copy()).to(
         resolve_device(device))

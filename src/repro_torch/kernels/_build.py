@@ -1,4 +1,5 @@
-"""Build the CUDA sources with nvcc and load them with ctypes.
+"""Build the CUDA sources with nvcc and load them with ctypes, and the
+argument checks every launch wrapper shares.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use into ``<repo>/build/lib<name>-<hash>.so`` (``build/`` is git-ignored):
@@ -19,6 +20,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -80,3 +83,29 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _libs[name] = lib
         return lib
+
+
+def check_arg(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
+              device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``ndim``-D ``dtype`` tensor on
+    ``device`` (what a kernel reading raw pointers needs)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def raise_on_error(err: int, what: str) -> None:
+    """A launch function returns ``cudaGetLastError()``; nonzero raises."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def stream_ptr(device: torch.device) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``device``, for a launch function."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

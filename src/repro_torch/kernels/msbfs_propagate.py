@@ -23,7 +23,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels._build import check_arg, raise_on_error, stream_ptr
 
 LAUNCHES = {"msbfs_propagate_planes": 0, "msbfs_propagate_planes_tiled": 0}
 
@@ -41,7 +42,6 @@ def reset_launches() -> None:
 
 
 def _lib() -> ctypes.CDLL:
-    from repro_torch.kernels import _build
     global _bound
     lib = _build.load(_LIB)
     if not _bound:
@@ -54,28 +54,6 @@ def _lib() -> ctypes.CDLL:
         f.restype = i
         _bound = True
     return lib
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
-           device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name} must be {ndim}-D, got shape "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
-
-
-def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def msbfs_propagate_planes(frontier: torch.Tensor, seen: torch.Tensor,
@@ -99,10 +77,10 @@ def msbfs_propagate_planes(frontier: torch.Tensor, seen: torch.Tensor,
     dev = frontier.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    _check("frontier", frontier, torch.int32, 2, dev)
-    _check("seen", seen, torch.int32, 2, dev)
-    _check("src", src, torch.int32, 1, dev)
-    _check("tgt", tgt, torch.int32, 1, dev)
+    check_arg("frontier", frontier, torch.int32, 2, dev)
+    check_arg("seen", seen, torch.int32, 2, dev)
+    check_arg("src", src, torch.int32, 1, dev)
+    check_arg("tgt", tgt, torch.int32, 1, dev)
     if seen.shape != frontier.shape or src.shape != tgt.shape:
         raise ValueError(f"shape mismatch: frontier {tuple(frontier.shape)} "
                          f"seen {tuple(seen.shape)} src {tuple(src.shape)} "
@@ -114,8 +92,8 @@ def msbfs_propagate_planes(frontier: torch.Tensor, seen: torch.Tensor,
     err = _lib().msbfs_propagate_planes_launch(
         frontier.data_ptr(), seen.data_ptr(), src.data_ptr(), tgt.data_ptr(),
         new.data_ptr(), seen_out.data_ptr(), cnt.data_ptr(),
-        int(src.shape[0]), n_rows, nw, _OP_CODE[op], _stream(dev))
-    _raise_on(err, "msbfs_propagate_planes")
+        int(src.shape[0]), n_rows, nw, _OP_CODE[op], stream_ptr(dev))
+    raise_on_error(err, "msbfs_propagate_planes")
     LAUNCHES["msbfs_propagate_planes"] += 1
     return new, seen_out, cnt
 
@@ -150,10 +128,10 @@ def msbfs_propagate_planes_tiled(seen: torch.Tensor, msg: torch.Tensor,
     dev = seen.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    _check("seen", seen, torch.int32, 2, dev)
-    _check("msg", msg, torch.int32, 2, dev)
-    _check("tgt", tgt, torch.int32, 1, dev)
-    _check("chunk_tile", chunk_tile, torch.int32, 1, dev)
+    check_arg("seen", seen, torch.int32, 2, dev)
+    check_arg("msg", msg, torch.int32, 2, dev)
+    check_arg("tgt", tgt, torch.int32, 1, dev)
+    check_arg("chunk_tile", chunk_tile, torch.int32, 1, dev)
     if msg.shape[1] != nw or tgt.shape[0] != msg.shape[0]:
         raise ValueError(f"shape mismatch: seen {tuple(seen.shape)} msg "
                          f"{tuple(msg.shape)} tgt {tuple(tgt.shape)}")
@@ -172,7 +150,7 @@ def msbfs_propagate_planes_tiled(seen: torch.Tensor, msg: torch.Tensor,
     err = _lib().msbfs_propagate_planes_tiled_launch(
         seen.data_ptr(), msg.data_ptr(), tgt.data_ptr(), chunk_off.data_ptr(),
         new.data_ptr(), seen_out.data_ptr(), cnt.data_ptr(), num_tiles,
-        tile_rows, nw, block_edges, _OP_CODE[op], _stream(dev))
-    _raise_on(err, "msbfs_propagate_planes_tiled")
+        tile_rows, nw, block_edges, _OP_CODE[op], stream_ptr(dev))
+    raise_on_error(err, "msbfs_propagate_planes_tiled")
     LAUNCHES["msbfs_propagate_planes_tiled"] += 1
     return new, seen_out, cnt

@@ -1,6 +1,8 @@
-"""Glue between the engine and the propagate kernels (port of the
-propagate half of ``repro.kernels.ops``).
+"""Glue between the engines and the kernels (port of the P3 and
+propagate halves of ``repro.kernels.ops``).
 
+``fused_frontier_update`` and ``fused_frontier_update_batch`` are the P3
+entries of the single-source runner and the bool-plane baseline.
 ``msbfs_propagate`` masks invalid and out-of-range edges, appends the
 trash row, pads the edge list to whole chunks and picks the kernel with
 ``propagate_plan``; ``msbfs_propagate_msgs`` is the tiled entry for
@@ -11,8 +13,30 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.bitmap_update import (bitmap_update,
+                                               bitmap_update_batch)
 from repro_torch.kernels.msbfs_propagate import (
     MAX_SMEM_PER_BLOCK, msbfs_propagate_planes, msbfs_propagate_planes_tiled)
+
+
+def fused_frontier_update(cand_words: torch.Tensor,
+                          visited_words: torch.Tensor):
+    """P3 update on flat int32[w] words; returns (new, visited, count).
+
+    The reference pads ``w`` to 128-word rows in blocks of at most 16 rows
+    (``_pad_rows_to_block``, the TPU's grid plan); kernel K4 takes any
+    ``w`` as it is, so nothing is padded here."""
+    nf, vo, cnt = bitmap_update(cand_words, visited_words)
+    return nf, vo, cnt[0, 0]
+
+
+def fused_frontier_update_batch(cand_words: torch.Tensor,
+                                visited_words: torch.Tensor):
+    """P3 update on a stack of planes: int32[g, w] -> (new, visited,
+    counts[g]), one popcount per plane (kernel K3)."""
+    nf, vo, cnt = bitmap_update_batch(cand_words, visited_words)
+    return nf, vo, cnt.reshape(-1)
+
 
 # The propagate's shared-memory budget is ``MAX_SMEM_PER_BLOCK``, the most
 # dynamic shared memory one H100 block may hold (227 KB), in the place of

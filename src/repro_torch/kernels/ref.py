@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the propagate kernels (port of the propagate
-half of ``repro.kernels.ref``).
+"""Plain PyTorch versions of the CUDA kernels (port of the P3 and
+propagate oracles of ``repro.kernels.ref``).
 
 They are what a kernel wrapper runs for a tensor on the CPU, and what
 ``chip_smoke.py`` holds each CUDA kernel against on the card.  Plane words
@@ -9,10 +9,28 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.bitmap import (INT32_MIN, _scatter_or_rows, drop_index,
-                                     popcount)
+from repro_torch.core.bitmap import (INT32_MIN, _popcount_words,
+                                     _scatter_or_rows, drop_index, popcount)
 
 OPS = ("or", "max")
+
+
+def bitmap_update_ref(cand: torch.Tensor, visited: torch.Tensor):
+    """Plain version of ``bitmap_update`` (kernel K4): ``new = cand &
+    ~visited``, ``visited | new`` and the popcount of ``new`` as
+    int32[1, 1], over words of any shape."""
+    nf = cand & ~visited
+    return nf, visited | nf, popcount(nf).reshape(1, 1)
+
+
+def bitmap_update_batch_ref(cand: torch.Tensor, visited: torch.Tensor):
+    """Plain version of ``bitmap_update_batch`` (kernel K3): the same P3
+    over a stack of planes (axis 0), one popcount per plane as
+    int32[g, 1, 1]."""
+    nf = cand & ~visited
+    cnt = _popcount_words(nf).reshape(nf.shape[0], -1).sum(
+        1, dtype=torch.int32)
+    return nf, visited | nf, cnt.reshape(-1, 1, 1)
 
 
 def _check_op(op: str) -> None:

@@ -1,15 +1,17 @@
-"""Batched BFS serving on one GPU (port of the BFS half of
+"""Batched graph-query serving on one GPU (port of the graph half of
 ``repro.launch.serve``).
 
-Answer a batch of BFS queries over a device-resident graph with one
+Answer a batch of queries over a device-resident graph with one
 multi-source traversal (``bfs_batch``) — the serving analogue of the
-paper's "keep every memory channel busy" aggregate-TEPS metric:
+paper's "keep every memory channel busy" aggregate-TEPS metric.  The
+vertex program is BFS, connected components (``--algo cc``, over the
+symmetrized graph) or unit-weight SSSP (``--algo sssp``):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --bfs-graph rmat20-16 \
-      --bfs-batch 64 [--device cpu]
+      --bfs-batch 64 [--algo bfs|cc|sssp] [--bfs-sparse-pull] [--device cpu]
 
-prints one JSON line.  The dynamic batcher, CC/SSSP serving and the
-distributed engine are not ported yet.
+prints one JSON line.  The dynamic batcher, the worker pool, the fault
+tolerance layer and the distributed engine are not ported yet.
 """
 from __future__ import annotations
 
@@ -21,21 +23,34 @@ import numpy as np
 
 from repro_torch.core.bfs_local import (INF, build_local_graph,
                                         count_traversed_edges)
-from repro_torch.core.vertex_program import MultiSourceBFSRunner
-from repro_torch.graph import get_dataset
+from repro_torch.core.vertex_program import (ConnectedComponentsRunner,
+                                             MultiSourceBFSRunner,
+                                             SSSPRunner, get_program)
+from repro_torch.graph import get_dataset, symmetrize_csr
+
+RUNNERS = {"bfs": MultiSourceBFSRunner, "cc": ConnectedComponentsRunner,
+           "sssp": SSSPRunner}
 
 
 def build_engine(graph: str, *, algo: str = "bfs", device=None,
-                 tile_rows: int | None = None):
-    """Build a BFS query engine with the graph resident on ``device``
-    (None = the CUDA card).  Returns (engine, out_degrees).  Build once,
-    reuse across ``bfs_batch`` calls."""
-    if algo != "bfs":
-        raise NotImplementedError(f"algo {algo!r} is not ported yet (bfs)")
+                 tile_rows: int | None = None, sparse_pull: bool = False):
+    """Build a vertex-program query engine with the graph resident on
+    ``device`` (None = the CUDA card).
+
+    ``algo``: "bfs" | "cc" | "sssp"; an unknown name raises ValueError.
+    CC symmetrizes the graph first (components are an undirected notion).
+    ``sparse_pull=True`` takes the budgeted pull on tail levels of the
+    plain path.  Returns (engine, out_degrees of the graph traversed).
+    Build once, reuse across ``bfs_batch`` calls."""
+    program = get_program(algo)
     ds = get_dataset(graph)
-    g = build_local_graph(ds.csr, ds.csc, device=device)
-    engine = MultiSourceBFSRunner(g, tile_rows=tile_rows)
-    return engine, np.diff(ds.csr.indptr)
+    csr, csc = ds.csr, ds.csc
+    if program.undirected:
+        csr = symmetrize_csr(csr)
+        csc = csr            # a symmetrized graph is its own transpose
+    g = build_local_graph(csr, csc, device=device)
+    engine = RUNNERS[algo](g, tile_rows=tile_rows, sparse_pull=sparse_pull)
+    return engine, np.diff(csr.indptr)
 
 
 def bfs_batch(roots, *, graph: str = "rmat16-16", engine=None, out_deg=None,
@@ -68,13 +83,13 @@ def bfs_batch(roots, *, graph: str = "rmat16-16", engine=None, out_deg=None,
 
 def serve_bfs(graph: str, batch: int, seed: int = 0, algo: str = "bfs", *,
               device=None, tile_rows: int | None = None,
-              keep_levels: bool = False) -> dict:
+              sparse_pull: bool = False, keep_levels: bool = False) -> dict:
     """Build the engine, then serve one warm-up wave and one timed wave of
     ``batch`` distinct non-isolated roots drawn from ``seed``.  Returns the
     timed wave's stats; ``keep_levels=True`` also returns its ``roots``
     and ``levels`` (for validation)."""
     engine, deg = build_engine(graph, algo=algo, device=device,
-                               tile_rows=tile_rows)
+                               tile_rows=tile_rows, sparse_pull=sparse_pull)
     rng = np.random.default_rng(seed)
     roots = rng.choice(np.flatnonzero(deg > 0), batch, replace=False)
     bfs_batch(roots, engine=engine, out_deg=deg)        # warm-up
@@ -94,10 +109,16 @@ def main(argv=None):
                     help="serve batched BFS queries over this graph")
     ap.add_argument("--bfs-batch", type=int, default=32,
                     help="number of concurrent BFS queries")
+    ap.add_argument("--algo", choices=tuple(RUNNERS), default="bfs",
+                    help="vertex program to serve")
+    ap.add_argument("--bfs-sparse-pull", action="store_true",
+                    help="budgeted sparse pull on tail levels (reads "
+                         "only unvisited vertices' in-lists)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    out = serve_bfs(args.bfs_graph, args.bfs_batch, device=args.device)
+    out = serve_bfs(args.bfs_graph, args.bfs_batch, algo=args.algo,
+                    device=args.device, sparse_pull=args.bfs_sparse_pull)
     print(json.dumps(out))
 
 

@@ -10,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import MultiSourceBFSRunner, build_local_graph
+from repro_torch.core import (BFSRunner, MultiSourceBFSRunner,
+                              SSSPRunner, build_local_graph)
 from repro_torch.graph import csr_from_edges, transpose_csr
 from repro_torch.interop import planes_from_numpy
+from repro_torch.kernels import bitmap_update as kbu
 from repro_torch.kernels import msbfs_propagate as kmod
 from repro_torch.kernels import ops, ref
 
@@ -101,3 +103,94 @@ def test_engine_on_card_equals_cpu_plain_path(dev, tile_rows):
     with pytest.raises(ValueError):
         MultiSourceBFSRunner(build_local_graph(csr, transpose_csr(csr),
                                                device=dev), use_kernels=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 31, 127, 129, 257, 8191, 32768])
+def test_bitmap_update_kernel(dev, w):
+    """K4 on odd, prime and real (rmat20: 32,768) word counts, random
+    words (bit 31 set in about half), all-ones and misaligned views."""
+    c, v = _words((w,), w), _words((w,), w + 1)
+    c[: min(w, 7)] = 0xFFFFFFFF
+    args = (planes_from_numpy(c, dev), planes_from_numpy(v, dev))
+    kbu.reset_launches()
+    _same(kbu.bitmap_update(*args), ref.bitmap_update_ref(*args))
+    assert kbu.LAUNCHES["bitmap_update"] == 1
+    if w > 1:                       # a view 4 bytes past a 16-byte boundary
+        cut = (args[0][1:].contiguous(), args[1][1:].contiguous())
+        _same(kbu.bitmap_update(args[0][1:], args[1][1:]),
+              ref.bitmap_update_ref(*cut))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,w", [(1, 1), (2, 31), (3, 127), (2, 129),
+                                 (3, 1009), (2, 4096)])
+def test_bitmap_update_batch_kernel(dev, g, w):
+    c, v = _words((g, w), g * w), _words((g, w), g * w + 1)
+    c[0] = 0xFFFFFFFF
+    v[-1] = 0
+    args = (planes_from_numpy(c, dev), planes_from_numpy(v, dev))
+    kbu.reset_launches()
+    _same(kbu.bitmap_update_batch(*args), ref.bitmap_update_batch_ref(*args))
+    assert kbu.LAUNCHES["bitmap_update_batch"] == 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_p3_kernels_refuse_what_they_cannot_take(dev):
+    c = planes_from_numpy(_words((4, 8), 1), dev)
+    with pytest.raises(ValueError):
+        kbu.bitmap_update(c, c)                   # K4 takes flat words
+    with pytest.raises(ValueError):
+        kbu.bitmap_update_batch(c.T, c.T)          # not contiguous
+    with pytest.raises(TypeError):
+        kbu.bitmap_update(c.reshape(-1).to(torch.int64),
+                          c.reshape(-1).to(torch.int64))
+
+
+def _card_and_cpu_graphs(dev):
+    rng = np.random.default_rng(2)
+    n = 256
+    src, dst = rng.integers(0, 192, 1500), rng.integers(0, 192, 1500)
+    csr = csr_from_edges(src, dst, n)
+    return (build_local_graph(csr, transpose_csr(csr), device="cpu"),
+            build_local_graph(csr, transpose_csr(csr), device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["push", "pull", "beamer"])
+def test_single_source_runner_on_card_equals_cpu_plain_path(dev, policy):
+    from repro_torch.core import SchedulerConfig
+    cpu, card = _card_and_cpu_graphs(dev)
+    for root in (0, 5, 191, 255):
+        want = BFSRunner(cpu, SchedulerConfig(policy=policy),
+                         use_kernels=False).run(root)
+        kbu.reset_launches()
+        got = BFSRunner(card, SchedulerConfig(policy=policy)).run(root)
+        np.testing.assert_array_equal(got.level, want.level)
+        for k in ("iterations", "edges_inspected", "push_iters",
+                  "pull_iters", "host_transfers"):
+            assert getattr(got, k) == getattr(want, k), k
+        assert kbu.LAUNCHES["bitmap_update"] == got.iterations + \
+            got.overflow_retries
+    with pytest.raises(ValueError):
+        BFSRunner(card, use_kernels=False)
+
+
+@pytest.mark.cuda
+def test_boolplane_and_sssp_on_card_equal_cpu_plain_path(dev):
+    cpu, card = _card_and_cpu_graphs(dev)
+    roots = np.asarray([0, 5, 5, 191, 255] + list(range(20, 60)))
+    want = MultiSourceBFSRunner(cpu, use_kernels=False,
+                                packed=False).run(roots)
+    kbu.reset_launches()
+    runner = MultiSourceBFSRunner(card, packed=False)
+    got = runner.run(roots)
+    np.testing.assert_array_equal(got.levels, want.levels)
+    assert got.host_transfers == want.host_transfers
+    assert kbu.LAUNCHES["bitmap_update_batch"] >= got.iterations
+    with pytest.raises(ValueError):
+        MultiSourceBFSRunner(card, use_kernels=False, packed=False)
+    sssp = SSSPRunner(card, integrity="witness").run(roots)
+    np.testing.assert_array_equal(sssp.distances, want.levels)

@@ -1,4 +1,4 @@
-"""The port's propagate kernels and their glue against the reference.
+"""The port's kernels and their glue against the reference.
 
 On the CPU the kernel wrappers run their plain versions, so these tests
 hold the wrappers' plumbing (trash row, masks, chunk padding, tile
@@ -19,7 +19,11 @@ import torch                                         # noqa: E402
 
 from repro.kernels import ops as jops                # noqa: E402
 from repro.kernels import ref as jref                # noqa: E402
+from repro.kernels.bitmap_update import bitmap_update as j_bitmap_update  # noqa: E402
+from repro.kernels.bitmap_update import (  # noqa: E402
+    bitmap_update_batch as j_bitmap_update_batch)
 from repro_torch.interop import planes_from_numpy, planes_to_numpy  # noqa: E402
+from repro_torch.kernels import bitmap_update as kbu  # noqa: E402
 from repro_torch.kernels import msbfs_propagate as kmod  # noqa: E402
 from repro_torch.kernels import ops, ref             # noqa: E402
 
@@ -293,3 +297,82 @@ def test_auto_block_edges():
         be = ops._auto_block_edges(m, 2)
         assert be % 1024 == 0 and be >= 1024
         assert be == jops._auto_block_edges(m, 2, kmod.MAX_SMEM_PER_BLOCK)
+
+
+# ---------------------------------------------------------------------------
+# P3 kernels K4 (bitmap_update) and K3 (bitmap_update_batch) and their ops
+# entries — tests/test_kernels.py; the Pallas calls run in interpret mode
+# ---------------------------------------------------------------------------
+
+def _words_np(shape, seed, fill=None):
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 2**32, shape, dtype=np.uint32)
+    if fill is not None:
+        w[...] = fill
+    return w
+
+
+@pytest.mark.parametrize("rows,block_rows", [(8, 8), (16, 16), (64, 16),
+                                             (256, 8)])
+def test_bitmap_update_plain_vs_pallas(rows, block_rows):
+    c = _words_np((rows, 128), rows)
+    v = _words_np((rows, 128), rows + 1)
+    want = j_bitmap_update(jnp.asarray(c), jnp.asarray(v),
+                           block_rows=block_rows)
+    # the plain version takes the TPU's [rows, 128] tiles as well as the
+    # wrapper's flat words
+    _assert_outputs(ref.bitmap_update_ref(_p(c), _p(v)), want)
+    _assert_outputs(kbu.bitmap_update(_p(c).reshape(-1), _p(v).reshape(-1)),
+                    want)
+
+
+@pytest.mark.parametrize("g,rows", [(1, 16), (2, 32), (3, 16)])
+def test_bitmap_update_batch_plain_vs_pallas(g, rows):
+    c = _words_np((g, rows, 128), g * rows)
+    v = _words_np((g, rows, 128), g * rows + 1)
+    c[-1] = 0xFFFFFFFF                       # all-ones planes, bit 31 set
+    want = j_bitmap_update_batch(jnp.asarray(c), jnp.asarray(v),
+                                 block_rows=16)
+    _assert_outputs(ref.bitmap_update_batch_ref(_p(c), _p(v)), want)
+    _assert_outputs(kbu.bitmap_update_batch(_p(c).reshape(g, -1),
+                                            _p(v).reshape(g, -1)), want)
+
+
+_ODD_W = [1, 31, 127, 128, 129, 131, 1000, 17 * 128, 5000]
+
+
+@pytest.mark.parametrize("w", _ODD_W)
+def test_fused_frontier_update_odd_sizes(w):
+    """Every w the reference pads to 128-word rows and 16-row blocks (its
+    TPU grid plan) gives the reference's words and count unpadded."""
+    c, v = _words_np((w,), w), _words_np((w,), w + 1)
+    if w == 31:
+        c[:] = 0xFFFFFFFF
+    got = ops.fused_frontier_update(_p(c), _p(v))
+    want = jops.fused_frontier_update(jnp.asarray(c), jnp.asarray(v))
+    _assert_outputs(got, want, f"w={w}")
+    assert got[2].shape == ()
+
+
+@pytest.mark.parametrize("g", [1, 2, 3])
+@pytest.mark.parametrize("w", [1, 31, 129, 1000])
+def test_fused_frontier_update_batch_odd_sizes(g, w):
+    c, v = _words_np((g, w), g * w), _words_np((g, w), g * w + 7)
+    v[0] = 0                                  # a plane with nothing seen
+    got = ops.fused_frontier_update_batch(_p(c), _p(v))
+    want = jops.fused_frontier_update_batch(jnp.asarray(c), jnp.asarray(v))
+    _assert_outputs(got, want, f"g={g} w={w}")
+    assert tuple(got[2].shape) == (g,)
+
+
+def test_p3_wrappers_check_their_inputs():
+    """A tensor on the CPU takes the plain body; the wrappers otherwise
+    refuse what the kernels cannot take (no card here: the CUDA checks
+    are in tests/test_torch_cuda.py)."""
+    c, v = _p(_words_np((5,), 1)), _p(_words_np((5,), 2))
+    kbu.reset_launches()
+    kbu.bitmap_update(c, v)
+    kbu.bitmap_update_batch(c[None], v[None])
+    assert kbu.LAUNCHES == {"bitmap_update": 0, "bitmap_update_batch": 0}
+    with pytest.raises(ValueError, match="unsupported device"):
+        kbu.bitmap_update(c.to("meta"), v.to("meta"))

@@ -27,7 +27,7 @@ from repro.graph import get_dataset as j_get_dataset       # noqa: E402
 from repro.graph import transpose_csr as j_transpose_csr   # noqa: E402
 from repro_torch.core import (MultiSourceBFSRunner, SchedulerConfig,  # noqa: E402
                               bfs_oracle, build_local_graph,
-                              compact_indices, expand_edges,
+                              compact_indices, expand_edges, get_program,
                               msbfs_reference)
 from repro_torch.core import bfs_local as tbl              # noqa: E402
 from repro_torch.core.scheduler import PUSH, choose_mode_host  # noqa: E402
@@ -235,12 +235,22 @@ def test_compact_and_expand_match_reference(cap):
 
 
 def test_unported_options_raise():
+    """The options an earlier slice left unported now run; what stays
+    refused is what the reference refuses too (ValueError)."""
     src, dst = _awkward_edges(N, 100, seed=1)
     *_, tg = _graphs(src, dst, N)
-    with pytest.raises(NotImplementedError):
-        MultiSourceBFSRunner(tg, packed=False)
-    with pytest.raises(NotImplementedError):
-        MultiSourceBFSRunner(tg, integrity="witness")
+    base = MultiSourceBFSRunner(tg).run(np.asarray([0, 7]))
+    bool_plane = MultiSourceBFSRunner(tg, packed=False).run(
+        np.asarray([0, 7]))
+    np.testing.assert_array_equal(bool_plane.levels, base.levels)
+    witness = MultiSourceBFSRunner(tg, integrity="witness")
+    np.testing.assert_array_equal(witness.run(np.asarray([0, 7])).levels,
+                                  base.levels)
+    assert witness.last_stats["integrity"]["mode"] == "witness"
+    with pytest.raises(ValueError):
+        MultiSourceBFSRunner(tg, integrity="paranoid")
+    with pytest.raises(ValueError):
+        get_program("pagerank")
     with pytest.raises(ValueError):
         MultiSourceBFSRunner(tg, use_kernels=False).run(np.asarray([N]))
     with pytest.raises(ValueError):

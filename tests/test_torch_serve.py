@@ -65,8 +65,13 @@ def test_roots_validated(graph_cache):
     for bad in ([0, 4096], [-1], [1.5], []):
         with pytest.raises(ValueError):
             serve.bfs_batch(np.asarray(bad), engine=engine, out_deg=deg)
-    with pytest.raises(NotImplementedError):
-        serve.build_engine(GRAPH, algo="cc", device="cpu")
+    # an unknown program is refused as the reference's get_program does;
+    # cc and sssp build (their answers: tests/test_torch_programs.py)
+    with pytest.raises(ValueError):
+        serve.build_engine(GRAPH, algo="pagerank", device="cpu")
+    for algo in ("cc", "sssp"):
+        eng, _ = serve.build_engine(GRAPH, algo=algo, device="cpu")
+        assert eng.program.name == algo
 
 
 def test_cli_prints_one_json_line(graph_cache, capsys):
