@@ -10,6 +10,10 @@ so neither package imports the other.  ``planes_from_numpy`` and
 ``[n_pad / 32]``.  Level rows and statvecs (int32[7], or int32[8] with
 integrity checking) are int32 in both packages and need only
 ``torch.from_numpy``.
+
+The block-sparse SpMV and flash attention take bf16, which numpy lacks:
+``bf16_from_numpy`` rounds f32 numpy values to bf16 to nearest even, as
+JAX's ``astype(jnp.bfloat16)`` does, so both packages see the same bits.
 """
 from __future__ import annotations
 
@@ -46,3 +50,10 @@ def planes_from_numpy(words: np.ndarray, device=None) -> torch.Tensor:
 def planes_to_numpy(words: torch.Tensor) -> np.ndarray:
     """int32 plane-word tensor -> uint32 numpy words with the same bits."""
     return words.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def bf16_from_numpy(values: np.ndarray, device=None) -> torch.Tensor:
+    """f32 numpy values (any shape) -> bf16 tensor on ``device`` (None =
+    the CUDA card), rounded to nearest even on the host."""
+    a = np.array(values, dtype=np.float32)          # a writable copy
+    return torch.from_numpy(a).to(torch.bfloat16).to(resolve_device(device))

@@ -1,0 +1,89 @@
+"""Launch wrapper of the flash-attention kernel.
+
+Port of ``repro.kernels.flash_attention`` (``flash_attention_pallas``).
+One kernel, hand-written in CUDA C++ for Hopper
+(``csrc/flash_attention.cu``, whose header note gives its bound and
+design):
+
+* ``flash_attention`` (K7) — causal or full softmax attention over q/k/v
+  ``[BH, S, hd]`` (heads flattened, KV already repeated), an online
+  softmax with f32 statistics, the output in q's dtype.
+
+The contract is the reference's: ``block_q`` and ``block_k`` must divide
+``S`` (the reference asserts it; this raises ValueError).  There is no
+``interpret`` argument.  A tensor on the CPU goes to the plain version in
+``kernels.ref``; a CUDA tensor launches the kernel or raises.  The wrapper
+counts its launches in ``LAUNCHES``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels._build import check_arg, raise_on_error, stream_ptr
+
+LAUNCHES = {"flash_attention": 0}
+
+HEAD_DIMS = (32, 64, 128)           # the head dims the kernel is built for
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_LIB = "flash_attention"
+_bound = False
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    global _bound
+    lib = _build.load(_LIB)
+    if not _bound:
+        p, i, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        f = lib.flash_attention_launch
+        f.argtypes = [p, p, p, p, i, i, i, i, i, f32, p]
+        f.restype = i
+        _bound = True
+    return lib
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, block_q: int = 128,
+                    block_k: int = 128) -> torch.Tensor:
+    """Softmax attention, ``softmax(q k^T / sqrt(hd)) v`` (K7).
+
+    q/k/v: [BH, S, hd], f32 or bf16, one shape.  ``causal`` masks keys
+    after each query.  ``block_q``/``block_k`` must divide ``S``.
+    Returns [BH, S, hd] in q's dtype."""
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q/k/v must share one [BH, S, hd] shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    bh, s, hd = q.shape
+    if block_q < 1 or block_k < 1 or s % block_q or s % block_k:
+        raise ValueError(f"block_q {block_q} and block_k {block_k} must "
+                         f"divide S = {s}")
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_arg(name, t, q.dtype, 3, dev)
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not built (kernel takes "
+                         f"{HEAD_DIMS})")
+    out = torch.empty_like(q)
+    if bh and s:
+        err = _lib().flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), int(bh),
+            int(s), int(hd), int(bool(causal)), _DTYPE_CODE[q.dtype],
+            1.0 / math.sqrt(hd), stream_ptr(dev))
+        raise_on_error(err, "flash_attention")
+        LAUNCHES["flash_attention"] += 1
+    return out

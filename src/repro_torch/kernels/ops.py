@@ -1,5 +1,5 @@
-"""Glue between the engines and the kernels (port of the P3 and
-propagate halves of ``repro.kernels.ops``).
+"""Glue between the engines and the kernels (port of
+``repro.kernels.ops``).
 
 ``fused_frontier_update`` and ``fused_frontier_update_batch`` are the P3
 entries of the single-source runner and the bool-plane baseline.
@@ -8,15 +8,22 @@ trash row, pads the edge list to whole chunks and picks the kernel with
 ``propagate_plan``; ``msbfs_propagate_msgs`` is the tiled entry for
 messages gathered elsewhere.  Everything here is plain PyTorch with sizes
 fixed by Python ints, so no call synchronises with the host.
+
+``build_page_table`` / ``read_neighbor_pages`` (the HBM reader, kernel K5)
+and ``pull_spmv`` (the block-sparse boolean SpMV, kernel K6) have no engine
+path in either package: they are entry points of their own.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.bitmap_update import (bitmap_update,
                                                bitmap_update_batch)
+from repro_torch.kernels.csr_gather import gather_pages
 from repro_torch.kernels.msbfs_propagate import (
     MAX_SMEM_PER_BLOCK, msbfs_propagate_planes, msbfs_propagate_planes_tiled)
+from repro_torch.kernels.pull_spmv import pull_spmv_blocks
 
 
 def fused_frontier_update(cand_words: torch.Tensor,
@@ -266,3 +273,57 @@ def msbfs_propagate_msgs(seen_w: torch.Tensor, msg: torch.Tensor,
     ok = _edge_ok(valid, None, tgt, n)
     msg = torch.where(ok[:, None], msg, 0)
     return _propagate_tiled(seen_w, msg, tgt, ok, tile_rows, block_edges, op)
+
+
+def build_page_table(starts: np.ndarray, degrees: np.ndarray, page: int,
+                     budget_pages: int):
+    """Host-side helper: (start, degree) pairs -> page table + masks.
+
+    Returns (page_ids int32[budget_pages], item_vertex int32[budget_pages],
+    first_offset int32[budget_pages]): work item i fetches page
+    ``page_ids[i]`` of vertex ``item_vertex[i]``'s neighbour list, whose
+    first page starts the list at ``first_offset``.  Vertices with degree
+    <= 0 get no item; pad items fetch page 0 for owner -1.  Raises
+    OverflowError above the budget.  The same arrays as the reference's
+    per-vertex loop, computed vectorised.
+    """
+    n = min(len(starts), len(degrees))
+    s = np.asarray(starts, np.int64)[:n]
+    d = np.asarray(degrees, np.int64)[:n]
+    live = np.flatnonzero(d > 0)
+    s, d = s[live], d[live]
+    p0 = s // page
+    npg = (s + d - 1) // page - p0 + 1
+    k = int(npg.sum())
+    if k > budget_pages:
+        raise OverflowError(f"page table {k} > budget {budget_pages}")
+    first = np.cumsum(npg) - npg                # each vertex's first item
+    item = np.arange(k, dtype=np.int64)
+    page_ids = np.zeros(budget_pages, np.int32)
+    owner = np.full(budget_pages, -1, np.int32)
+    offs = np.zeros(budget_pages, np.int32)
+    page_ids[:k] = np.repeat(p0 - first, npg) + item
+    owner[:k] = np.repeat(live, npg)
+    offs[first] = s - p0 * page
+    return page_ids, owner, offs
+
+
+def read_neighbor_pages(edges: torch.Tensor, page_ids: torch.Tensor,
+                        page: int) -> torch.Tensor:
+    """HBM-reader op: fetch the pages listed in ``page_ids`` (kernel K5).
+
+    ``edges`` is the flat int32 edge array, padded to a page multiple.
+    Returns int32[m, page]."""
+    return gather_pages(edges.view(-1, page), page_ids)
+
+
+def pull_spmv(blocks: torch.Tensor, block_row: torch.Tensor,
+              block_col: torch.Tensor, frontier: torch.Tensor,
+              num_row_blocks: int) -> torch.Tensor:
+    """Boolean block SpMV (kernel K6); returns the OR result as
+    bool[num_row_blocks, b, L].  The reference derives ``row_first`` here
+    for its sequential grid; K6 adds every tile into a zeroed output and
+    reads no ``row_first``, so none is built."""
+    acc = pull_spmv_blocks(blocks, block_row, block_col, None, frontier,
+                           num_row_blocks)
+    return acc > 0

@@ -1,11 +1,17 @@
-"""Plain PyTorch versions of the CUDA kernels (port of the P3 and
-propagate oracles of ``repro.kernels.ref``).
+"""Plain PyTorch versions of the CUDA kernels (port of the oracles of
+``repro.kernels.ref``).
 
 They are what a kernel wrapper runs for a tensor on the CPU, and what
 ``chip_smoke.py`` holds each CUDA kernel against on the card.  Plane words
 are int32 with the bits of the reference's uint32 words.
+
+Out-of-range indices behave as in the reference's jnp indexing: a
+negative index is wrapped once (``i + n``, as numpy does); a gather then
+clamps into ``[0, n)`` and a scatter drops what is still outside.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -115,3 +121,67 @@ def msbfs_propagate_msgs_ref(seen: torch.Tensor, msg: torch.Tensor,
     cand = scatter_combine(torch.zeros_like(seen), torch.where(ok, tgt, n),
                            msg, op)
     return _p3(cand, seen)
+
+
+def _wrap_index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """int64 indices with negatives wrapped once (``i + n``), as numpy and
+    jnp indexing do; what stays outside ``[0, n)`` is left for the caller
+    to clamp (a gather) or drop (a scatter)."""
+    idx = idx.to(torch.int64)
+    return torch.where(idx < 0, idx + n, idx)
+
+
+def gather_pages_ref(edges_paged: torch.Tensor,
+                     page_ids: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``gather_pages`` (kernel K5): ``out[i] =
+    edges_paged[page_ids[i]]``, int32[m, page].  An id outside ``[0,
+    num_pages)`` gives what jnp gives: wrapped once if negative, then
+    clamped (torch's own indexing would raise instead)."""
+    n = edges_paged.shape[0]
+    return edges_paged[_wrap_index(page_ids, n).clamp(0, n - 1)]
+
+
+def pull_spmv_blocks_ref(blocks: torch.Tensor, block_row: torch.Tensor,
+                         block_col: torch.Tensor, row_first,
+                         frontier: torch.Tensor,
+                         num_row_blocks: int) -> torch.Tensor:
+    """Plain version of ``pull_spmv_blocks`` (kernel K6): ``out[r] = sum
+    over tiles i with block_row[i] == r of blocks[i] @
+    frontier[block_col[i]]`` in f32, f32[num_row_blocks, b, L].  A row
+    block with no tile is 0.  ``row_first`` is not needed (the sum starts
+    from zeros), as in the reference's oracle; a ``block_col`` out of range
+    is clamped and a ``block_row`` out of range dropped, after wrapping."""
+    del row_first
+    _, b, _ = blocks.shape
+    ncb, _, lanes = frontier.shape
+    col = _wrap_index(block_col, ncb).clamp(0, ncb - 1)
+    prod = torch.bmm(blocks.to(torch.float32),
+                     frontier[col].to(torch.float32))
+    row = _wrap_index(block_row, num_row_blocks)
+    row = torch.where((row >= 0) & (row < num_row_blocks), row,
+                      num_row_blocks)
+    out = torch.zeros((num_row_blocks + 1, b, lanes), dtype=torch.float32,
+                      device=blocks.device)
+    out.index_add_(0, row, prod)
+    return out[:num_row_blocks]
+
+
+NEG_INF = -1e30                 # the reference's mask value
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Plain version of ``flash_attention`` (kernel K7): softmax attention
+    over q/k/v [BH, S, hd], computed in f32 and cast to q's dtype, masked
+    with ``-1e30`` where causal.  Written in place where it can, so the
+    score matrix exists once at a time."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s_ = torch.bmm(q.to(torch.float32),
+                   k.to(torch.float32).transpose(1, 2)).mul_(scale)
+    if causal:
+        n, nk = q.shape[1], k.shape[1]
+        mask = torch.ones((n, nk), dtype=torch.bool,
+                          device=q.device).triu_(1)
+        s_.masked_fill_(mask, NEG_INF)
+    s_ = torch.softmax(s_, dim=-1)
+    return torch.bmm(s_, v.to(torch.float32)).to(q.dtype)

@@ -1,4 +1,5 @@
-"""The CUDA kernels on the card against their plain versions, bit for bit.
+"""The CUDA kernels on the card against their plain versions: bit for bit,
+except flash attention (K7), held within a stated tolerance.
 
 Marked ``cuda``: each test skips with a reason where there is no CUDA
 device (the kernels have no CPU mode).  This file imports neither JAX nor
@@ -13,10 +14,13 @@ import torch
 from repro_torch.core import (BFSRunner, MultiSourceBFSRunner,
                               SSSPRunner, build_local_graph)
 from repro_torch.graph import csr_from_edges, transpose_csr
-from repro_torch.interop import planes_from_numpy
+from repro_torch.interop import bf16_from_numpy, planes_from_numpy
 from repro_torch.kernels import bitmap_update as kbu
+from repro_torch.kernels import csr_gather as kcg
+from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import msbfs_propagate as kmod
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import pull_spmv as kps
 
 TILE, BLOCK = 16, 32
 
@@ -194,3 +198,153 @@ def test_boolplane_and_sssp_on_card_equal_cpu_plain_path(dev):
         MultiSourceBFSRunner(card, use_kernels=False, packed=False)
     sssp = SSSPRunner(card, integrity="witness").run(roots)
     np.testing.assert_array_equal(sssp.distances, want.levels)
+
+
+# -- K5: the paged CSR gather -------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [0, 1, 17])
+@pytest.mark.parametrize("page", [1, 3, 128, 512])
+def test_gather_pages_kernel(dev, page, m):
+    """Ids out of range on both sides: wrapped once, then clamped, as the
+    plain version does; bit-exact."""
+    num_pages = 7
+    rng = np.random.default_rng(page + m)
+    edges = _i(rng.integers(-2**31, 2**31 - 1, (num_pages, page)), dev)
+    ids = _i(rng.integers(-3 * num_pages, 3 * num_pages, m), dev)
+    kcg.reset_launches()
+    got = kcg.gather_pages(edges, ids)
+    assert kcg.LAUNCHES["gather_pages"] == (1 if m else 0)
+    assert got.shape == (m, page) and got.dtype == torch.int32
+    assert torch.equal(got, ref.gather_pages_ref(edges, ids))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [4, 128])
+def test_gather_pages_kernel_misaligned_edges(dev, page):
+    """An edge array 4 bytes off 16-byte alignment takes the scalar path
+    and gives the same pages."""
+    num_pages = 9
+    flat = _i(np.random.default_rng(page).integers(0, 10**6,
+                                                   num_pages * page + 1), dev)
+    edges = flat[1:].view(num_pages, page)
+    assert edges.data_ptr() % 16 == 4
+    ids = _i([0, 8, 3, -1, 12, 5], dev)
+    assert torch.equal(kcg.gather_pages(edges, ids),
+                       ref.gather_pages_ref(edges, ids))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_read_neighbor_pages_on_card(dev):
+    rng = np.random.default_rng(7)
+    page = 64
+    degrees = rng.integers(0, 200, 50)
+    starts = np.concatenate([[0], np.cumsum(degrees)[:-1]])
+    edges = rng.integers(0, 1000, -(-int(degrees.sum()) // page) * page)
+    pids = ops.build_page_table(starts, degrees, page, 512)[0]
+    got = ops.read_neighbor_pages(_i(edges, dev), _i(pids, dev), page)
+    want = ops.read_neighbor_pages(_i(edges, "cpu"), _i(pids, "cpu"), page)
+    assert torch.equal(got.cpu(), want)
+
+
+# -- K6: the block-sparse pull SpMV -------------------------------------------
+
+def _spmv_inputs(dev, b, lanes, nb, rb, cb, seed, brow=None, density=0.2):
+    rng = np.random.default_rng(seed)
+    tiles = (rng.random((nb, b, b)) < density).astype(np.float32)
+    if brow is None:
+        brow = np.sort(rng.integers(0, rb, nb))
+    f = (rng.random((cb, b, lanes)) < 0.3).astype(np.float32)
+    return (bf16_from_numpy(tiles, dev), _i(brow, dev),
+            _i(rng.integers(0, cb, nb), dev), bf16_from_numpy(f, dev))
+
+
+def _spmv_same(blocks, brow, bcol, f, rb):
+    got = kps.pull_spmv_blocks(blocks, brow, bcol, None, f, rb)
+    want = ref.pull_spmv_blocks_ref(blocks, brow, bcol, None, f, rb)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert torch.equal(ops.pull_spmv(blocks, brow, bcol, f, rb), want > 0)
+    torch.cuda.synchronize()
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 4, 8, 64, 128])
+@pytest.mark.parametrize("b", [16, 128, 256])
+def test_pull_spmv_kernel(dev, b, lanes):
+    """Bit-exact f32 (0/1 sums are exact in any order); row blocks 1 and 4
+    have no tile and must be 0."""
+    brow = [0, 0, 2, 2, 2, 3, 5, 5]
+    args = _spmv_inputs(dev, b, lanes, len(brow), 6, 4, b + lanes, brow)
+    kps.reset_launches()
+    got = _spmv_same(*args, 6)
+    assert kps.LAUNCHES["pull_spmv_blocks"] == 2      # direct + ops
+    assert not got[[1, 4]].any()
+
+
+@pytest.mark.cuda
+def test_pull_spmv_kernel_single_tile_and_all_ones(dev):
+    blocks, brow, bcol, f = _spmv_inputs(dev, 128, 8, 1, 1, 1, 3)
+    _spmv_same(blocks, brow, bcol, f, 1)
+    # the largest sums: all-ones tiles and frontier, 5 tiles on one row
+    ones = torch.ones((5, 256, 256), dtype=torch.bfloat16, device=dev)
+    f1 = torch.ones((2, 256, 64), dtype=torch.bfloat16, device=dev)
+    got = _spmv_same(ones, _i([0, 0, 0, 0, 1], dev), _i([0, 1, 0, 1, 1], dev),
+                     f1, 2)
+    assert bool((got[0] == 4 * 256).all()) and bool((got[1] == 256).all())
+
+
+@pytest.mark.cuda
+def test_pull_spmv_kernel_out_of_range_blocks(dev):
+    blocks, _, _, f = _spmv_inputs(dev, 16, 2, 6, 3, 3, 11, density=0.5)
+    _spmv_same(blocks, _i([-1, 0, 3, -5, 1, 2], dev),
+               _i([-1, 5, 0, -4, 2, -3], dev), f, 3)
+
+
+# -- K7: flash attention ------------------------------------------------------
+
+# (atol, rtol): |got - want| <= atol + rtol * |want|.  f32 both ways: only
+# the order of the sums differs.  bf16 both ways: each side rounds its f32
+# result once, so they differ by at most one bf16 ulp (under 2^-7 of the
+# value); a flat 2e-2 would be as large as the outputs of long causal rows.
+FLASH_TOL = {torch.float32: (3e-5, 0.0), torch.bfloat16: (1e-3, 8e-3)}
+FLASH_RMS = 1e-2    # rms(got - want) / rms(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,bq,bk", [(128, 64, 128), (256, 128, 64),
+                                     (512, 64, 256)])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel(dev, dtype, hd, s, bq, bk, causal):
+    gen = torch.Generator(device=dev).manual_seed(hd + s)
+    q, k, v = (torch.randn((2, s, hd), generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    kfa.reset_launches()
+    got = kfa.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    assert kfa.LAUNCHES["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    atol, rtol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    d = got.float() - want.float()
+    assert float(d.square().mean().sqrt()
+                 / want.float().square().mean().sqrt()) <= FLASH_RMS
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_refuses_what_it_cannot_take(dev):
+    q = torch.zeros((1, 128, 48), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        kfa.flash_attention(q, q, q, block_q=64, block_k=64)
+    h = torch.zeros((1, 128, 64), dtype=torch.float16, device=dev)
+    with pytest.raises(TypeError):
+        kfa.flash_attention(h, h, h, block_q=64, block_k=64)
+    f = torch.zeros((1, 128, 64), device=dev)
+    with pytest.raises(ValueError, match="divide"):
+        kfa.flash_attention(f, f, f, block_q=96, block_k=64)
