@@ -9,7 +9,9 @@ them.  Phases, each failing the run on any error:
 
   (a) card: name and power limit (nvidia-smi), torch and CUDA versions;
   (b) build: nvcc builds every kernel source from the checkout, one nvcc
-      per source, all started together, timed;
+      per source, all started together, timed; ptxas's registers and
+      spills of every kernel, and the dynamic shared memory a block of
+      K6 and K7 takes;
   (c) kernels against their plain versions ON THE CARD, bit-exact: the
       propagate kernels K1/K2 (both combine ops) on the adversarial cases
       of the kernel test suites, then on every level of a real traversal
@@ -39,17 +41,20 @@ them.  Phases, each failing the run on any error:
       over --graph's edge array for the largest level of (h)'s first root
       (page table from ``build_page_table``), with 1,000 of its vertices'
       neighbour lists reassembled from the pages;
-  (m) the block-sparse pull SpMV K6, bit-exact: adversarial tiles, then
-      ``ops.pull_spmv`` over the dense hub blocks of --graph (its 8,192
-      highest-degree vertices in 128-blocks) with (d)'s level-1 frontier
-      of its 64 roots as lanes;
-  (n) flash attention K7 within its stated tolerance: adversarial dtypes,
-      head dims, lengths and blocks, then llama3-8b's attention (32 heads,
+  (m) the block-sparse pull SpMV K6 (wgmma on the tensor cores),
+      bit-exact: adversarial tiles, then ``ops.pull_spmv`` over the dense
+      hub blocks of --graph (its 8,192 highest-degree vertices in
+      128-blocks) with (d)'s level-1 frontier of its 64 roots as lanes;
+  (n) flash attention K7 (bf16 by wgmma on the tensor cores, f32 on the
+      CUDA cores) within its stated tolerance: adversarial dtypes, head
+      dims, lengths and blocks, then llama3-8b's attention (32 heads,
       head dim 128, S = 8192, causal, bf16);
   (f) one JSON line of per-kernel results: K1 and K2 with their launches
       in (e) and (d), K3 in (i), K4 in (h), K5 in (l), K6 in (m), K7 in
       (n); every bound from ``repro_torch.launch.roofline`` (H100), every
-      library yardstick timed here and used nowhere in the port;
+      library yardstick timed here and used nowhere in the port; the
+      (l)-(n) rows also log the share of the bound and the ratio to the
+      library time;
   (g) with --profile only: device time by kernel and the device's idle
       share over one wave of each plan (torch.profiler).
 
@@ -59,6 +64,7 @@ The last line of standard output is the result:
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import statistics
 import subprocess
@@ -128,6 +134,45 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def demangle(names: list[str]) -> list[str]:
+    """Kernel names as c++filt gives them, without the arguments (the
+    mangled names where c++filt is missing)."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True,
+                             check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        return names
+    return [o.replace("(anonymous namespace)::", "").split("(")[0]
+            .removeprefix("void ") for o in out]
+
+
+def ptxas_report(log_text: str) -> list[str]:
+    """One line per kernel of an ``nvcc -Xptxas -v`` report: registers,
+    spills and static shared memory."""
+    names, facts = [], []
+    for line in log_text.splitlines():
+        if "Function properties for" in line:
+            names.append(line.split("Function properties for")[1].strip())
+            facts.append([])
+        elif names and ("spill" in line or "registers" in line):
+            facts[-1].append(line.split(":", 1)[-1].strip())
+    return [f"{n}: {'; '.join(f)}" for n, f in zip(demangle(names), facts)]
+
+
+def log_smem() -> None:
+    """The dynamic shared memory a block of K6 and K7 takes (ptxas reports
+    only static shared memory)."""
+    fa = _build.load("flash_attention").flash_attention_smem_bytes
+    ps = _build.load("pull_spmv").pull_spmv_smem_bytes
+    fa.argtypes, fa.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    ps.argtypes, ps.restype = [ctypes.c_int], ctypes.c_int
+    log("(b) dynamic shared memory a block: flash_attention " + ", ".join(
+        f"hd {hd} {dt} {fa(hd, code)} B" for hd in kfa.HEAD_DIMS
+        for dt, code in (("bf16", 1), ("f32", 0))) + "; pull_spmv " +
+        ", ".join(f"L {lanes} {ps(lanes)} B" for lanes in (64, 128)))
 
 
 def time_ms(fn, reps: int) -> float:
@@ -727,9 +772,12 @@ def time_row(kernel, plain, library, nbytes, flops, err, reps) -> dict:
 
 def log_row(name: str, r: dict, what: str) -> None:
     lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+    vs = ("" if r["library_ms"] is None else
+          f" kernel/library={r['ms'] / r['library_ms']:.3f}")
     log(f"({what}) {name}: kernel_ms={r['ms']:.4f} plain_ms="
         f"{r['plain_ms']:.4f} library_ms={lib} bound_ms={r['bound_ms']:.5f} "
         f"(by {r['bound_by']}: bytes={r['bytes']:.0f} flops={r['flops']:.4g})"
+        f" share_of_bound={r['bound_ms'] / r['ms']:.3f}{vs}"
         f" max_abs_err={r['max_abs_err']} launches={r.get('launches')}")
 
 
@@ -1141,9 +1189,9 @@ def main(argv=None) -> int:
     log(f"(b) built {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.2f}s")
     for name in SOURCES:
-        for line in _build.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"(b) ptxas {name}: {line.strip()}")
+        for line in ptxas_report(_build.build_logs.get(name, "")):
+            log(f"(b) ptxas {name}: {line}")
+    log_smem()
 
     # the graph, its device copy and the roots every phase shares
     ds = get_dataset(args.graph)

@@ -7,15 +7,17 @@ use into ``<repo>/build/lib<name>-<hash>.so`` (``build/`` is git-ignored):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so <name>.cu
 
-The hash covers the source and the flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is.  Nothing is built when a module
-is imported: the first launch builds.
+The hash covers the source, every header it includes from ``csrc/``
+(``#include "..."``, followed recursively) and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.
+Nothing is built when a module is imported: the first launch builds.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -51,10 +53,32 @@ def find_nvcc() -> str:
                        "the CUDA kernels are built on first use")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the local headers it includes, recursively
+    (each once, in the order first met)."""
+    found: list[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = path.parent / inc.decode()
+            if header.exists():
+                todo.append(header)
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{h}.so"
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -7,10 +7,15 @@ design):
 
 * ``flash_attention`` (K7) — causal or full softmax attention over q/k/v
   ``[BH, S, hd]`` (heads flattened, KV already repeated), an online
-  softmax with f32 statistics, the output in q's dtype.
+  softmax with f32 statistics, the output in q's dtype.  bf16 runs on the
+  tensor cores (wgmma, P split into two bf16 terms); f32 runs on the CUDA
+  cores, since the tensor cores would round f32 operands to TF32.
 
 The contract is the reference's: ``block_q`` and ``block_k`` must divide
-``S`` (the reference asserts it; this raises ValueError).  There is no
+``S`` (the reference asserts it; this raises ValueError).  They fix
+nothing in the kernel, whose tiles are its own (128 query rows and
+128 keys in bf16, 64 and 64 in f32) and which masks a ragged last tile
+itself; in the reference they only fix the order of summation.  There is no
 ``interpret`` argument.  A tensor on the CPU goes to the plain version in
 ``kernels.ref``; a CUDA tensor launches the kernel or raises.  The wrapper
 counts its launches in ``LAUNCHES``.
@@ -57,7 +62,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q/k/v: [BH, S, hd], f32 or bf16, one shape.  ``causal`` masks keys
     after each query.  ``block_q``/``block_k`` must divide ``S``.
-    Returns [BH, S, hd] in q's dtype."""
+    Returns [BH, S, hd] in q's dtype.  The blocks do not tile the
+    kernel (see the module note)."""
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v must share one [BH, S, hd] shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -75,6 +81,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_arg(name, t, q.dtype, 3, dev)
+    if q.dtype == torch.bfloat16:
+        # the tensor-core kernel loads by TMA: 16-byte aligned bases
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not built (kernel takes "
                          f"{HEAD_DIMS})")

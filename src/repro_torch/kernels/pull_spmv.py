@@ -5,9 +5,10 @@ for Hopper (``csrc/pull_spmv.cu``, whose header note gives its bound and
 design):
 
 * ``pull_spmv_blocks`` (K6) — ``out[block_row[i]] += blocks[i] @
-  frontier[block_col[i]]`` over bf16 0/1 tiles, accumulated in f32; the
-  caller's ``> 0`` is the OR-AND product of pull-mode BFS over the dense
-  hub blocks of a scale-free graph.
+  frontier[block_col[i]]`` over bf16 0/1 tiles, accumulated in f32 by
+  wgmma on the tensor cores (exact: 0/1 products, integer sums below
+  2^24); the caller's ``> 0`` is the OR-AND product of pull-mode BFS over
+  the dense hub blocks of a scale-free graph.
 
 A row block with no tile is 0 (the reference's oracle; its TPU kernel
 left such rows unwritten).  A tensor on the CPU goes to the plain version
@@ -58,8 +59,8 @@ def pull_spmv_blocks(blocks: torch.Tensor, block_row: torch.Tensor,
     block_row / block_col: int32[nb] output row block and frontier column
         block of each tile.
     row_first: ignored, may be None; kept for the reference's signature
-        (the kernel adds every tile into a zeroed output, so it needs no
-        mark of where a row run starts).
+        (the kernel adds the sums of each run of tiles into a zeroed
+        output, so it needs no mark of where a row run starts).
     frontier: bf16[ncb, b, L] frontier lanes per column block.
     Returns f32[num_row_blocks, b, L]; OR == (out > 0).
     """

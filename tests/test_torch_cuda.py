@@ -303,6 +303,70 @@ def test_pull_spmv_kernel_out_of_range_blocks(dev):
                _i([-1, 5, 0, -4, 2, -3], dev), f, 3)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [4, 64, 72])
+@pytest.mark.parametrize("b", [40, 48])
+def test_pull_spmv_kernel_ragged_tiles(dev, b, lanes):
+    """b a multiple of 16 but not of 32 (48) or of 16 at all (40): the
+    tensor-core kernel zero-pads the last k step; L = 72 is not a multiple
+    of 16."""
+    args = _spmv_inputs(dev, b, lanes, 9, 5, 3, 7 * b + lanes)
+    _spmv_same(*args, 5)
+
+
+@pytest.mark.cuda
+def test_pull_spmv_kernel_lanes_72(dev):
+    args = _spmv_inputs(dev, 128, 72, 12, 4, 4, 72)
+    _spmv_same(*args, 4)
+
+
+@pytest.mark.cuda
+def test_pull_spmv_kernel_long_row_runs(dev):
+    """About 600 tiles on 2 row blocks: each block's run of tiles lies
+    inside a row or crosses from one row to the next."""
+    brow = np.repeat([0, 1], [311, 290])
+    blocks, brow_t, bcol, f = _spmv_inputs(dev, 128, 64, brow.size, 2, 8, 5,
+                                           brow=brow, density=0.05)
+    got = _spmv_same(blocks, brow_t, bcol, f, 2)
+    assert got.max() > 1
+
+
+@pytest.mark.cuda
+def test_pull_spmv_kernel_unsorted_repeated_rows(dev):
+    """1,000 tiles, so each block's run holds several: unsorted rows with
+    repeats, negative rows that wrap and rows out of range that drop
+    their tiles in the middle of a run."""
+    rng = np.random.default_rng(17)
+    brow = rng.integers(-6, 6, 1000)
+    brow[:6] = [2, 2, 0, 2, 3, 3]
+    args = _spmv_inputs(dev, 128, 64, brow.size, 4, 5, 17, brow=brow,
+                        density=0.05)
+    _spmv_same(*args, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lanes", [(128, 64), (256, 128), (64, 200)])
+def test_pull_spmv_kernel_fewer_tiles_than_blocks(dev, b, lanes):
+    """nb far below the blocks the grid would like (runs of one tile);
+    b = 256 and L = 200 also split the output over grid y and z."""
+    args = _spmv_inputs(dev, b, lanes, 3, 2, 2, b + lanes)
+    _spmv_same(*args, 2)
+
+
+@pytest.mark.cuda
+def test_pull_spmv_kernel_misaligned_inputs(dev):
+    """Tiles and frontier 2 bytes off 16-byte alignment take the scalar
+    copies."""
+    blocks, brow, bcol, f = _spmv_inputs(dev, 64, 16, 7, 3, 2, 23)
+    pad_b = torch.zeros(blocks.numel() + 1, dtype=blocks.dtype, device=dev)
+    pad_b[1:] = blocks.reshape(-1)
+    pad_f = torch.zeros(f.numel() + 1, dtype=f.dtype, device=dev)
+    pad_f[1:] = f.reshape(-1)
+    mb, mf = pad_b[1:].view(blocks.shape), pad_f[1:].view(f.shape)
+    assert mb.data_ptr() % 16 == 2 and mf.data_ptr() % 16 == 2
+    _spmv_same(mb, brow, bcol, mf, 3)
+
+
 # -- K7: flash attention ------------------------------------------------------
 
 # (atol, rtol): |got - want| <= atol + rtol * |want|.  f32 both ways: only
@@ -320,21 +384,71 @@ FLASH_RMS = 1e-2    # rms(got - want) / rms(want)
 @pytest.mark.parametrize("hd", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel(dev, dtype, hd, s, bq, bk, causal):
-    gen = torch.Generator(device=dev).manual_seed(hd + s)
-    q, k, v = (torch.randn((2, s, hd), generator=gen, device=dev).to(dtype)
+    _flash_holds(dev, dtype, 2, s, hd, bq, bk, causal, hd + s)
+
+
+def _flash_holds(dev, dtype, bh, s, hd, bq, bk, causal, seed):
+    """One launch, held to FLASH_TOL elementwise and FLASH_RMS overall."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((bh, s, hd), generator=gen, device=dev).to(dtype)
                for _ in range(3))
     kfa.reset_launches()
     got = kfa.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
     assert kfa.LAUNCHES["flash_attention"] == 1
-    want = ref.flash_attention_ref(q, k, v, causal=causal)
-    assert got.dtype == dtype and got.shape == q.shape
-    atol, rtol = FLASH_TOL[dtype]
+    _flash_close(got, ref.flash_attention_ref(q, k, v, causal=causal))
+    assert got.shape == q.shape
+
+
+def _flash_close(got, want):
+    """FLASH_TOL elementwise and FLASH_RMS overall, at want's dtype."""
+    assert got.dtype == want.dtype
+    atol, rtol = FLASH_TOL[want.dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
     d = got.float() - want.float()
     assert float(d.square().mean().sqrt()
                  / want.float().square().mean().sqrt()) <= FLASH_RMS
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,block", [(192, 64), (320, 64), (200, 40)])
+def test_flash_attention_kernel_ragged_tiles(dev, s, block, causal):
+    """S not a multiple of the bf16 kernel's 128-row query tile (192, 320),
+    nor of its 64-key tile (200): rows past S unwritten, keys past S
+    weightless."""
+    _flash_holds(dev, torch.bfloat16, 3, s, 128, block, block, causal, s)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_long_row(dev):
+    _flash_holds(dev, torch.bfloat16, 1, 4096, 128, 128, 128, True, 4096)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [32, 64])
+def test_flash_attention_kernel_narrow_heads(dev, hd, causal):
+    _flash_holds(dev, torch.bfloat16, 2, 1024, hd, 128, 256, causal, hd)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_misaligned_bf16(dev):
+    """A contiguous bf16 view 2 bytes off 16-byte alignment is copied for
+    the kernel's 16-byte loads: it gives the aligned input's result, and
+    holds against the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn((2, 256, 64), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=dev)
+    flat[1:] = q.reshape(-1)
+    qm = flat[1:].view(q.shape)
+    assert qm.data_ptr() % 16 == 2
+    got = kfa.flash_attention(qm, k, v, block_q=64, block_k=64)
+    assert torch.equal(got,
+                       kfa.flash_attention(q, k, v, block_q=64, block_k=64))
+    _flash_close(got, ref.flash_attention_ref(qm, k, v, causal=True))
 
 
 @pytest.mark.cuda
