@@ -13,18 +13,26 @@ them.  Phases, each failing the run on any error:
       spills of every kernel, and the dynamic shared memory a block of
       K6 and K7 takes;
   (c) kernels against their plain versions ON THE CARD, bit-exact: the
-      propagate kernels K1/K2 (both combine ops) on the adversarial cases
-      of the kernel test suites, then on every level of a real traversal
-      of --graph at --batch roots; the P3 kernels K3/K4 on adversarial
-      word counts, then on the inputs of every level of a real
-      single-source run (K4) and bool-plane wave (K3); kernel, plain and
-      bound times of each, and the cost of K3's two transposes;
+      propagate kernels K1/K2 (both combine ops; K2 given its run heads)
+      on the adversarial cases of the kernel test suites, then on every
+      level of a real traversal of --graph at --batch roots and at 256
+      roots (K2's pad chunks logged per level, and K2 timed alone
+      through its C launch function at three load widths); the P3
+      kernels K3/K4 on adversarial word counts, then on the inputs of
+      every level of a real single-source run (K4, also timed alone
+      through its C launch function) and bool-plane wave (K3); kernel,
+      plain and bound times of each, and the cost of K3's two transposes;
   (d) the serving path: ``serve_bfs(graph, batch)`` (warm-up + timed
       wave, auto kernel plan) with launch counts reset just before; every
       plane is validated Graph500-style on the card and 4 roots against a
       vectorised numpy BFS;
   (e) the same call with ``tile_rows=0`` (the whole-array kernel), whose
       levels must equal (d)'s;
+  (o) ``serve_bfs(graph, 256)`` with the tiled plan (K2) and with the
+      whole-array plan (K1), every plane validated as in (d), the two
+      plans' levels equal; then, at --batch and at 256, one wave of each
+      plan in turns (tiled, whole, whole, tiled) through ``bfs_batch``,
+      and the plan the auto rule picks;
   (h) single-source BFS, the paper's metric: ``BFSRunner`` over 64 roots
       (Graph500's count of search keys, seed 0, non-isolated) after one
       warm-up root; every root validated Graph500-style and 4 against the
@@ -49,14 +57,15 @@ them.  Phases, each failing the run on any error:
       CUDA cores) within its stated tolerance: adversarial dtypes, head
       dims, lengths and blocks, then llama3-8b's attention (32 heads,
       head dim 128, S = 8192, causal, bf16);
-  (f) one JSON line of per-kernel results: K1 and K2 with their launches
-      in (e) and (d), K3 in (i), K4 in (h), K5 in (l), K6 in (m), K7 in
-      (n); every bound from ``repro_torch.launch.roofline`` (H100), every
+  (f) one JSON line of per-kernel results: K1 with its launches in (e)
+      and times at --batch, K2 with its launches in (o)'s tiled call and
+      times at 256 roots, K3 in (i), K4 in (h), K5 in (l), K6 in (m), K7
+      in (n); every bound from ``repro_torch.launch.roofline`` (H100), every
       library yardstick timed here and used nowhere in the port; the
       (l)-(n) rows also log the share of the bound and the ratio to the
       library time;
   (g) with --profile only: device time by kernel and the device's idle
-      share over one wave of each plan (torch.profiler).
+      share over one wave of each plan at --batch (torch.profiler).
 
 The last line of standard output is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -122,6 +131,7 @@ SOURCES = ("msbfs_propagate", "bitmap_update", "csr_gather", "pull_spmv",
            "flash_attention")
 MODULES = (kmod, kbu, kcg, kps, kfa)
 SEARCH_KEYS = 64                 # Graph500's count of BFS roots per run
+WIDE_BATCH = 256                 # planes outgrow the 50 MB L2 at rmat20
 TILE, BLOCK = 16, 32             # small-case tiling of the kernel tests
 
 
@@ -223,9 +233,63 @@ def whole_inputs(frontier, seen, src, tgt, valid, block_edges):
 
 
 def tiled_inputs(frontier, seen, src, tgt, valid, tile_rows, block_edges):
+    """K2's inputs as ``ops.msbfs_propagate`` builds them: (seen, msg,
+    tgt, chunk_tile) and the run heads ``tile_chunks``."""
     ok = ops._edge_ok(valid, src, tgt, frontier.shape[0])
-    msg = ops._gather_msgs(frontier, src, ok)
-    return ops._tiled_inputs(seen, msg, tgt, ok, tile_rows, block_edges)
+    *args, heads = ops._tiled_inputs(seen, frontier, src, tgt, ok, tile_rows,
+                                     block_edges)
+    return args, heads
+
+
+def gathered_msgs(frontier, src, ok):
+    """msg[e] = frontier[src[e]] where ok, else 0: the msgs-form input."""
+    msg = frontier[src.to(torch.int64).clamp(0, frontier.shape[0] - 1)]
+    return torch.where(ok[:, None], msg, 0)
+
+
+def k2_alone(k2, tile_rows: int, block_edges: int, reps: int) -> dict:
+    """K2 alone: run ends, outputs and counters made once; each timed call
+    zeroes ``new`` and the counters, as the launch requires, then calls the
+    C launch function (no wrapper, no allocation).  Timed with the load
+    widths (vec, vec4) the wrapper picks ("chosen"), with a scalar P3
+    ("p3_scalar": vec, 0) and with the simplest widths ("simple": uint2
+    message groups at even nw, scalar P3), in turns forward then back;
+    every variant must give the chosen one's outputs.  Returns the means,
+    the largest spread of a variant's two turns over its mean, and the
+    zero fill's time."""
+    (seen, msg, tgt, ct), heads = k2
+    run_first, work_off = kmod._tile_runs(ct, heads, seen.shape[0] //
+                                          tile_rows, block_edges)
+    new, seen_out = torch.empty_like(seen), torch.empty_like(seen)
+    scratch = torch.empty(seen.shape[0] // tile_rows + 1, dtype=torch.int32,
+                          device=seen.device)
+    chosen = kmod._load_widths(seen, msg, new, seen_out, tile_rows)
+    variants = {"kernel_only_ms": chosen, "p3_scalar_ms": (chosen[0], 0),
+                "simple_ms": (2 if seen.shape[1] % 2 == 0
+                              and msg.data_ptr() % 8 == 0 else 1, 0)}
+
+    def run(widths):
+        new.zero_()
+        scratch.zero_()
+        _build.raise_on_error(kmod._launch_tiled(
+            seen, msg, tgt, run_first, work_off, new, seen_out, scratch,
+            tile_rows, "or", widths), "msbfs_propagate_planes_tiled")
+
+    want = None
+    for name, widths in variants.items():
+        run(widths)
+        got = (new.clone(), seen_out.clone(), scratch[:1].clone())
+        want = want or got
+        assert_same(got, want, f"K2 load widths {widths}")
+    t = {name: [] for name in variants}
+    for name in [*variants, *reversed(variants)]:
+        t[name].append(time_ms(lambda: run(variants[name]), reps))
+    out = {name: float(np.mean(v)) for name, v in t.items()}
+    out["turn_spread"] = max(abs(v[0] - v[1]) / np.mean(v)
+                             for v in t.values())
+    out["zero_ms"] = time_ms(lambda: (new.zero_(), scratch.zero_()), reps)
+    out["widths"] = " / ".join(str(w) for w in variants.values())
+    return out
 
 
 def check_k1(args, op, what) -> int:
@@ -234,11 +298,14 @@ def check_k1(args, op, what) -> int:
     return assert_same(got, want, f"K1 {what} [{op}]")
 
 
-def check_k2(args, tile_rows, block_edges, op, what) -> int:
-    got = kmod.msbfs_propagate_planes_tiled(*args, tile_rows, block_edges,
-                                            op=op)
+def check_k2(k2, tile_rows, block_edges, op, what) -> int:
+    """K2 given its run heads, as the path calls it, against the plain
+    version, which reads every chunk."""
+    args, heads = k2
     want = ref.msbfs_propagate_planes_tiled_ref(*args, tile_rows,
                                                 block_edges, op=op)
+    got = kmod.msbfs_propagate_planes_tiled(*args, heads, tile_rows,
+                                            block_edges, op=op)
     return assert_same(got, want, f"K2 {what} [{op}]")
 
 
@@ -327,16 +394,20 @@ def phase_small(dev) -> int:
             n = f.shape[0]
             ok = ops._edge_ok(valid, src, tgt, n)
             want = ref.msbfs_propagate_msgs_ref(
-                s, ops._gather_msgs(f, src, ok), tgt, ok, op=op)
+                s, gathered_msgs(f, src, ok), tgt, ok, op=op)
             for tr in (0, TILE):
                 got = ops.msbfs_propagate(f, s, src, tgt, valid,
                                           block_edges=BLOCK, op=op,
                                           tile_rows=tr)
                 assert_same(got, want, f"ops tile_rows={tr} {name} [{op}]")
+            got = ops.msbfs_propagate_msgs(s, gathered_msgs(f, src, ok), tgt,
+                                           valid, tile_rows=TILE,
+                                           block_edges=BLOCK, op=op)
+            assert_same(got, want, f"ops msgs form {name} [{op}]")
     if not bit31:
         raise AssertionError("no small case had a word with bit 31 set")
-    log(f"(c) small cases: {len(cases)} cases x 2 ops, "
-        "K1 + K2 + both ops paths bit-exact")
+    log(f"(c) small cases: {len(cases)} cases x 2 ops, K1 + K2 + the three "
+        "ops paths bit-exact")
     return err
 
 
@@ -368,13 +439,15 @@ def bound(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
                                 else "bytes")
 
 
-def phase_real(graph: str, batch: int, seed: int, dev) -> dict:
+def phase_real(g, deg: np.ndarray, graph: str, batch: int, seed: int
+               ) -> dict:
     """Both kernels against their plain versions on the inputs of every
-    level of one wave (both ops), timed level by level.  Each kernel's
-    ms / plain_ms / bound_ms are means over the wave's calls."""
-    ds = get_dataset(graph)
-    g = build_local_graph(ds.csr, ds.csc, device=dev)
-    deg = np.diff(ds.csr.indptr)
+    level of one wave of ``batch`` roots (both ops), timed level by level.
+    Each kernel's ms / plain_ms / bound_ms are means over the wave's
+    calls.  K2's bound counts the bytes its real edges need (the message
+    of each valid slot, and the target of each valid slot whose message is
+    not zero) and its three plane arrays; K1's, the padded edge list it
+    reads whole and its four plane arrays."""
     roots = np.random.default_rng(seed).choice(np.flatnonzero(deg > 0),
                                                batch, replace=False)
     calls = capture_levels(g, roots)
@@ -384,47 +457,74 @@ def phase_real(graph: str, batch: int, seed: int, dev) -> dict:
         n, nw = frontier.shape
         m = int(src.shape[0])
         be = ops._auto_block_edges(m, nw)
-        plan = ops.propagate_plan(n, nw)
-        tr = plan["tile_rows"] if plan["tiled"] else ops._auto_tile_rows(nw)
+        tr = ops._auto_tile_rows(nw)
         k1 = whole_inputs(frontier, seen, src, tgt, valid, be)
         k2 = tiled_inputs(frontier, seen, src, tgt, valid, tr, be)
-        e1 = max(check_k1(k1, op, f"{graph} level {lvl}")
+        e1 = max(check_k1(k1, op, f"{graph} B={batch} level {lvl}")
                  for op in ("or", "max"))
-        e2 = max(check_k2(k2, tr, be, op, f"{graph} level {lvl}")
+        e2 = max(check_k2(k2, tr, be, op, f"{graph} B={batch} level {lvl}")
                  for op in ("or", "max"))
-        s2, sm, st, ct = k2
+        (s2, sm, st, ct), heads = k2
+        ok = ops._edge_ok(valid, src, tgt, n)
+        real = int(ok.sum())
+        live = int((sm != 0).any(1).sum())     # valid, message not zero
+        pad = int(ct.shape[0]) - int(heads.sum())
+        # the tiled path's feed: the bucket count alone (searchsorted on
+        # the sorted tile keys), and the whole bucketing with its gather
+        t_ = int(s2.shape[0]) // tr
+        keys, _ = torch.sort(torch.where(ok, tgt // tr, t_).to(torch.int16))
+        count_ms = time_ms(lambda: ops._key_starts(keys, t_), 5)
+        feed_ms = time_ms(lambda: tiled_inputs(frontier, seen, src, tgt,
+                                               valid, tr, be), 2)
         b1 = 4 * k1[0].numel() * 4 + 2 * k1[2].numel() * 4 + 4
-        b2 = (3 * s2.numel() * 4 + sm.numel() * 4 + st.numel() * 4
-              + ct.numel() * 4 + 4)
+        b2 = real * nw * 4 + live * 4 + 3 * s2.numel() * 4 + 4
         r1 = dict(bytes=b1, bound_ms=bound(b1)[0], max_abs_err=e1,
                   ms=time_ms(lambda: kmod.msbfs_propagate_planes(*k1), 5),
                   plain_ms=time_ms(
                       lambda: ref.msbfs_propagate_planes_ref(*k1), 1))
         r2 = dict(bytes=b2, bound_ms=bound(b2)[0], max_abs_err=e2,
+                  count_ms=count_ms, feed_ms=feed_ms,
+                  **k2_alone(k2, tr, be, 20),
                   ms=time_ms(lambda: kmod.msbfs_propagate_planes_tiled(
-                      *k2, tr, be), 5),
+                      s2, sm, st, ct, heads, tr, be), 5),
                   plain_ms=time_ms(
                       lambda: ref.msbfs_propagate_planes_tiled_ref(
-                          *k2, tr, be), 1))
+                          s2, sm, st, ct, tr, be), 1))
         per["msbfs_propagate_planes"].append(r1)
         per["msbfs_propagate_planes_tiled"].append(r2)
         nz = int((frontier != 0).any(1).sum())
-        log(f"(c) level {lvl}: budget={m} real edges={int(valid.sum())} "
-            f"frontier rows={nz} block_edges={be} tile_rows={tr} | K1 "
-            f"{r1['ms']:.4f} ms (bound {r1['bound_ms']:.4f}, plain "
-            f"{r1['plain_ms']:.3f}) | K2 {r2['ms']:.4f} ms (bound "
-            f"{r2['bound_ms']:.4f}, plain {r2['plain_ms']:.3f})")
+        widths = r2.pop("widths")
+        log(f"(c) B={batch} level {lvl}: budget={m} real edges={real} "
+            f"of them non-zero messages={live} frontier rows={nz} "
+            f"block_edges={be} tile_rows={tr} chunks={ct.shape[0]} pad "
+            f"chunks={pad} | K1 {r1['ms']:.4f} ms (bound "
+            f"{r1['bound_ms']:.4f}, plain {r1['plain_ms']:.3f}) | K2 "
+            f"{r2['ms']:.4f} ms (bound {r2['bound_ms']:.4f}, plain "
+            f"{r2['plain_ms']:.3f}; alone {r2['kernel_only_ms']:.4f} / "
+            f"scalar P3 {r2['p3_scalar_ms']:.4f} / simple widths "
+            f"{r2['simple_ms']:.4f} (vec, vec4 {widths}; turn spread "
+            f"{r2['turn_spread']:.3f}), zero fill {r2['zero_ms']:.4f}; feed "
+            f"{feed_ms:.3f} ms, its bucket count {count_ms:.4f} ms)")
         del k1, k2
     out = {}
     for name, rows in per.items():
         out[name] = {k: float(np.mean([r[k] for r in rows]))
-                     for k in ("ms", "plain_ms", "bound_ms", "bytes")}
+                     for k in rows[0] if k != "max_abs_err"}
         out[name]["max_abs_err"] = max(r["max_abs_err"] for r in rows)
         r = out[name]
+        feed = ("" if "feed_ms" not in r else
+                f" kernel_only_ms={r['kernel_only_ms']:.4f} (C launch "
+                f"function back to back, zero fill of new and counters "
+                f"included) p3_scalar_ms={r['p3_scalar_ms']:.4f} "
+                f"simple_widths_ms={r['simple_ms']:.4f} turn_spread_mean="
+                f"{r['turn_spread']:.4f} "
+                f"zero_fill_ms={r['zero_ms']:.4f} feed_ms="
+                f"{r['feed_ms']:.4f} bucket_count_ms={r['count_ms']:.4f}")
         log(f"(c) {name}: mean over {len(rows)} levels of one {graph} "
             f"B={batch} wave, both ops bit-exact on each: kernel_ms="
             f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms="
-            f"{r['bound_ms']:.4f} (bytes={r['bytes']:.0f}) library_ms=null")
+            f"{r['bound_ms']:.4f} (bytes={r['bytes']:.0f}) share_of_bound="
+            f"{r['bound_ms'] / r['ms']:.3f} library_ms=null{feed}")
     return out
 
 
@@ -507,6 +607,18 @@ def capture_p3(g, root: int, roots: np.ndarray) -> tuple[list, list]:
     return k4, k3
 
 
+def k4_kernel_ms(c: torch.Tensor, v: torch.Tensor, reps: int) -> float:
+    """K4 alone: outputs allocated and the count zeroed once, then the C
+    launch function called back to back (no wrapper, no allocation)."""
+    new, vout = torch.empty_like(c), torch.empty_like(v)
+    cnt = torch.zeros((1, 1), dtype=torch.int32, device=c.device)
+    launch = kbu._lib().bitmap_update_launch
+    args = (c.data_ptr(), v.data_ptr(), new.data_ptr(), vout.data_ptr(),
+            cnt.data_ptr(), int(c.numel()), _build.stream_ptr(c.device))
+    return time_ms(lambda: _build.raise_on_error(launch(*args),
+                                                 "bitmap_update"), reps)
+
+
 def phase_p3_real(g, root: int, roots: np.ndarray) -> dict:
     """K4 and K3 against their plain versions on every level's real
     inputs, timed level by level (means over the levels), and the two
@@ -526,6 +638,8 @@ def phase_p3_real(g, root: int, roots: np.ndarray) -> dict:
                              bound_ms=bound(nbytes)[0],
                              ms=time_ms(lambda: kern(c, v), 20),
                              plain_ms=time_ms(lambda: plain(c, v), 3)))
+            if name == "bitmap_update":
+                rows[-1]["kernel_only_ms"] = k4_kernel_ms(c, v, 200)
             if c.dim() == 2:
                 # the engine's planes come [n_pad, nw]: two copies per call
                 cp, vp = c.T.contiguous(), v.T.contiguous()
@@ -540,6 +654,13 @@ def phase_p3_real(g, root: int, roots: np.ndarray) -> dict:
             f" (shape {tuple(c.shape)}), bit-exact on each: kernel_ms="
             f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms="
             f"{r['bound_ms']:.5f} (bytes={r['bytes']:.0f}) library_ms=null")
+        if name == "bitmap_update":
+            r["kernel_only_ms"] = float(np.mean(
+                [row["kernel_only_ms"] for row in rows]))
+            log(f"(c) bitmap_update alone (C launch function back to back, "
+                f"outputs preallocated, count zeroed once): kernel_only_ms="
+                f"{r['kernel_only_ms']:.5f} mean over the {len(rows)} calls' "
+                f"inputs (wrapper {r['ms']:.4f}, bound {r['bound_ms']:.5f})")
     out["transpose_ms"] = float(np.mean(trans_ms))
     log(f"(c) K3's two input transposes ([n_pad, nw] -> [nw, n_pad], cand "
         f"and seen): {out['transpose_ms']:.4f} ms per call (mean over "
@@ -550,13 +671,14 @@ def phase_p3_real(g, root: int, roots: np.ndarray) -> dict:
 # -- validation of a served wave --------------------------------------------
 
 def graph500_validate(ds, roots: np.ndarray, levels: np.ndarray, iters: int,
-                      dev, chunk: int = 1 << 22) -> None:
+                      dev) -> None:
     """Every plane on the card: root at 0, values in [0, iters] or INF, no
     edge u->v with level[v] > level[u] + 1, and every reached non-root has
     an in-neighbour at level - 1."""
     n = levels.shape[1]
     lv = torch.from_numpy(np.ascontiguousarray(levels.T)).to(dev)  # [n, B]
     b = lv.shape[1]
+    chunk = max((1 << 28) // b, 1 << 16)    # edges a pass: 1 GB of levels
     cols = torch.arange(b, device=dev)
     r = torch.from_numpy(roots.astype(np.int64)).to(dev)
     if bool((lv[r, cols] != 0).any()):
@@ -635,6 +757,63 @@ def phase_serve(graph: str, batch: int, seed: int, dev, tile_rows,
     log(f"({label}) 4 roots equal the numpy BFS "
         f"({time.perf_counter() - t0:.2f}s)")
     return dict(out=out, launches=counts, levels=levels, roots=roots)
+
+
+def plan_turns(g, deg: np.ndarray, batch: int, seed: int) -> dict:
+    """Wave seconds of the tiled plan (K2 at the auto tile size) and the
+    whole-array plan (K1) on one graph in turns (tiled, whole, whole,
+    tiled) after one warm-up wave each, through ``bfs_batch``; the two
+    plans' levels must be equal.  Returns the seconds by plan and the
+    plan the auto rule picks at this batch."""
+    from repro_torch.launch.serve import bfs_batch
+    roots = np.random.default_rng(seed).choice(np.flatnonzero(deg > 0),
+                                               batch, replace=False)
+    nw = -(-batch // 32)
+    tr = ops._auto_tile_rows(nw)
+    engines = {"tiled": MultiSourceBFSRunner(g, tile_rows=tr),
+               "whole": MultiSourceBFSRunner(g, tile_rows=0)}
+    want = None
+    for name, engine in engines.items():                 # warm-up
+        levels = bfs_batch(roots, engine=engine, out_deg=deg)["levels"]
+        if want is None:
+            want = levels
+        elif not np.array_equal(levels, want):
+            raise AssertionError(f"B={batch}: tiled and whole-array plans' "
+                                 "levels differ")
+    del want, levels
+    secs = {"tiled": [], "whole": []}
+    levels_s = {"tiled": [], "whole": []}
+    for name in ("tiled", "whole", "whole", "tiled"):
+        out = bfs_batch(roots, engine=engines[name], out_deg=deg)
+        secs[name].append(out["seconds"])
+        levels_s[name].append(sum(engines[name].last_level_seconds))
+        log(f"(o) turn B={batch} {name}: wave seconds={out['seconds']} "
+            f"aggregate_teps={out['aggregate_teps']:.4e} levels' seconds="
+            f"{levels_s[name][-1]:.4f} iterations={out['iterations']}")
+    auto = "tiled" if ops.propagate_plan(g.n_pad, nw)["tiled"] else "whole"
+    by_wave = min(secs, key=lambda k: sum(secs[k]))
+    by_levels = min(levels_s, key=lambda k: sum(levels_s[k]))
+    log(f"(o) plan turns B={batch} (tile_rows={tr}): wave seconds tiled "
+        f"{secs['tiled']} whole {secs['whole']}, levels' seconds (the "
+        f"traversal before the readback, which both plans share) tiled "
+        f"{[round(x, 4) for x in levels_s['tiled']]} whole "
+        f"{[round(x, 4) for x in levels_s['whole']]}; faster by wave: "
+        f"{by_wave}, by levels: {by_levels}; the auto plan picks: {auto}")
+    return dict(seconds=secs, level_seconds=levels_s, auto=auto)
+
+
+def phase_wide(graph: str, seed: int, dev) -> dict:
+    """(o) ``serve_bfs`` at WIDE_BATCH with the tiled and the whole-array
+    plan, every plane validated, the two plans' levels equal."""
+    nw = -(-WIDE_BATCH // 32)
+    tiled = phase_serve(graph, WIDE_BATCH, seed, dev,
+                        ops._auto_tile_rows(nw), "o")
+    whole = phase_serve(graph, WIDE_BATCH, seed, dev, 0, "o")
+    if not np.array_equal(tiled["levels"], whole["levels"]):
+        raise AssertionError(f"B={WIDE_BATCH}: tiled and whole-array plans' "
+                             "levels differ")
+    log(f"(o) B={WIDE_BATCH}: the two plans' levels are equal")
+    return dict(tiled=tiled, whole=whole)
 
 
 def phase_sbfs(ds, g, roots: np.ndarray, dev) -> dict:
@@ -1155,7 +1334,8 @@ def phase_profile(graph: str, batch: int, seed: int, dev, tile_rows,
     log(f"(g) profile {graph} B={batch} {label}: wave wall {wall_ms:.2f} ms "
         f"(profiled), device busy {busy:.2f} ms, idle share "
         f"{1 - busy / wall_ms:.3f}")
-    for ms, count, key in rows[:top]:
+    shown = rows[:top] + [r for r in rows[top:] if "propagate_" in r[2]]
+    for ms, count, key in shown:
         log(f"(g)   {ms:9.3f} ms {100 * ms / busy:5.1f}% x{count:<5d} "
             f"{key[:90]}")
 
@@ -1202,9 +1382,15 @@ def main(argv=None) -> int:
     wave_roots = np.random.default_rng(args.seed).choice(
         np.flatnonzero(deg > 0), args.batch, replace=False)
 
-    # (c) kernels against plain versions
+    # (c) kernels against plain versions; K1 is reported at --batch, K2 at
+    # WIDE_BATCH, where the planes outgrow L2 (both are logged at both)
     small_err = phase_small(dev)
-    real = phase_real(args.graph, args.batch, args.seed, dev)
+    real = phase_real(g, deg, args.graph, args.batch, args.seed)
+    wide = phase_real(g, deg, args.graph, WIDE_BATCH, args.seed)
+    for name in ("msbfs_propagate_planes", "msbfs_propagate_planes_tiled"):
+        real[name]["max_abs_err"] = max(real[name]["max_abs_err"],
+                                        wide[name]["max_abs_err"])
+    real["msbfs_propagate_planes_tiled"] = wide["msbfs_propagate_planes_tiled"]
     p3_err = phase_p3_small(g.n_pad, args.batch, dev)
     real.update(phase_p3_real(g, int(keys[0]), wave_roots))
 
@@ -1216,6 +1402,11 @@ def main(argv=None) -> int:
                              "plan's")
     if not np.array_equal(d["roots"], wave_roots):
         raise AssertionError("serve_bfs drew other roots than expected")
+
+    # (o) WIDE_BATCH served with both plans; both plans' waves in turns
+    o = phase_wide(args.graph, args.seed, dev)
+    for batch in (args.batch, WIDE_BATCH):
+        plan_turns(g, deg, batch, args.seed)
 
     # (h) single-source BFS; (i) bool-plane; (j) CC, SSSP; (k) integrity
     h = phase_sbfs(ds, g, keys, dev)
@@ -1236,7 +1427,7 @@ def main(argv=None) -> int:
     counts = {
         "msbfs_propagate_planes": e["launches"]["msbfs_propagate_planes"],
         "msbfs_propagate_planes_tiled":
-            d["launches"]["msbfs_propagate_planes_tiled"],
+            o["tiled"]["launches"]["msbfs_propagate_planes_tiled"],
         "bitmap_update_batch": i["launches"]["bitmap_update_batch"],
         "bitmap_update": h["launches"]["bitmap_update"],
         **{k: real[k]["launches"] for k in ("gather_pages",
@@ -1248,7 +1439,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"{name} was never launched on its path")
 
     if args.profile:
-        for tr in (None, 0):
+        for tr in (ops._auto_tile_rows(-(-args.batch // 32)), 0):
             phase_profile(args.graph, args.batch, args.seed, dev, tr)
 
     # (f) summary

@@ -212,8 +212,8 @@ def _propagate_edges(g: LocalGraph, frontier_w, seen_w, src, tgt, valid,
                      tile_rows: int | None = None):
     """Fused P2->P3 on packed words: cand[tgt] (+)= frontier[src], then
     new = cand & ~seen, seen |= new.  Kernel path (``kernels.ops``) or the
-    plain scatter-OR.  ``tile_rows`` selects the kernel (None = auto by
-    plane-array footprint, 0 = whole-array, > 0 = row-tiled)."""
+    plain scatter-OR.  ``tile_rows`` selects the kernel (None = auto, see
+    ``kernels.ops.propagate_plan``; 0 = whole-array, > 0 = row-tiled)."""
     if use_kernels:
         from repro_torch.kernels import ops as kops
         new, seen2, _ = kops.msbfs_propagate(frontier_w, seen_w, src, tgt,
@@ -521,8 +521,8 @@ class VertexProgramRunner:
         # exact-once plane corruption hook: (level, vertex, plane) XORs one
         # frontier bit right before that level's step; consumed per run
         self._corrupt_plane: tuple[int, int, int] | None = None
-        # propagate kernel: None = auto by plane-array footprint
-        # (kernels.ops.propagate_plan), 0 = whole-array, > 0 = row tiles
+        # propagate kernel: None = auto (kernels.ops.propagate_plan),
+        # 0 = whole-array, > 0 = row tiles
         self.tile_rows = tile_rows
         # budgeted pull on tail levels of the plain path (see
         # _propagate_pull_sparse); off keeps the dense scan's cost model

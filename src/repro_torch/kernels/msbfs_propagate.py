@@ -8,8 +8,9 @@ their bound and design):
   gathers ``frontier[src]`` and scatter-combines into a zeroed candidate
   array with global atomics, then a P3 + popcount launch.
 * ``msbfs_propagate_planes_tiled`` (K2) — pre-gathered messages bucketed
-  by target row tile; one CTA per tile with the accumulator in shared
-  memory.
+  by target row tile; a persistent grid cuts the tiles' runs into equal
+  slices, each tile's accumulator in shared memory, a tile split across
+  CTAs finished by its last part.
 
 A tensor on the CPU goes to the plain version in ``kernels.ref``; a CUDA
 tensor launches the kernel or raises.  Each wrapper counts its launches in
@@ -50,7 +51,7 @@ def _lib() -> ctypes.CDLL:
         f.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, p]
         f.restype = i
         f = lib.msbfs_propagate_planes_tiled_launch
-        f.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+        f.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         f.restype = i
         _bound = True
     return lib
@@ -98,10 +99,44 @@ def msbfs_propagate_planes(frontier: torch.Tensor, seen: torch.Tensor,
     return new, seen_out, cnt
 
 
+def _tile_runs(chunk_tile: torch.Tensor, tile_chunks: torch.Tensor,
+               num_tiles: int, block_edges: int):
+    """Each tile's run of slots in the bucketed stream, for K2: (run_first
+    int64[T], work_off int64[T + 1]), tile t's run being the slots
+    [run_first[t], run_first[t] + work_off[t + 1] - work_off[t]).
+
+    A run starts at the tile's first chunk in ``chunk_tile`` and holds
+    ``tile_chunks[t]`` chunks, never more than reach the next tile's first
+    chunk."""
+    dev = chunk_tile.device
+    chunk_off = torch.searchsorted(
+        chunk_tile, torch.arange(num_tiles + 1, dtype=chunk_tile.dtype,
+                                 device=dev))
+    run = torch.minimum(chunk_off[1:] - chunk_off[:-1],
+                        tile_chunks.to(torch.int64).clamp(min=0))
+    work_off = torch.zeros(num_tiles + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(run * block_edges, 0, out=work_off[1:])
+    return chunk_off[:-1] * block_edges, work_off
+
+
+def _load_widths(seen, msg, new, seen_out, tile_rows: int
+                 ) -> tuple[int, int]:
+    """K2's load widths: (vec, vec4).  vec, the words of one message load:
+    4 or 2 where they divide nw and the stream is aligned to them, else 1;
+    vec4, 1 where P3 moves uint4s (the tile's words a multiple of 4 and
+    the plane arrays 16-byte aligned), else 0."""
+    nw = seen.shape[1]
+    vec = next((v for v in (4, 2)
+                if nw % v == 0 and msg.data_ptr() % (4 * v) == 0), 1)
+    vec4 = int((tile_rows * nw) % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (seen, new, seen_out)))
+    return vec, vec4
+
+
 def msbfs_propagate_planes_tiled(seen: torch.Tensor, msg: torch.Tensor,
                                  tgt: torch.Tensor, chunk_tile: torch.Tensor,
-                                 tile_rows: int, block_edges: int,
-                                 op: str = "or"):
+                                 tile_chunks: torch.Tensor, tile_rows: int,
+                                 block_edges: int, op: str = "or"):
     """Row-tiled fused scatter-combine/P3 over pre-gathered messages (K2).
 
     seen: int32[R, nw], R a multiple of ``tile_rows`` (pad rows all-ones).
@@ -111,6 +146,10 @@ def msbfs_propagate_planes_tiled(seen: torch.Tensor, msg: torch.Tensor,
     tgt: int32[L] GLOBAL target rows inside their chunk's tile.
     chunk_tile: int32[NC] nondecreasing tile id per chunk, covering every
         tile at least once.
+    tile_chunks: int32[R // tile_rows], the chunks at the head of each
+        tile's run that hold its real edges (the bucketing's counts); the
+        kernel reads no chunk after them, so they must carry only zero
+        messages.  The plain version reads every chunk.
     Returns (new, seen_out, count int32[1, 1]).
     """
     if op not in _OP_CODE:
@@ -122,6 +161,10 @@ def msbfs_propagate_planes_tiled(seen: torch.Tensor, msg: torch.Tensor,
     if msg.shape[0] != chunk_tile.shape[0] * block_edges:
         raise ValueError(f"msg rows {msg.shape[0]} != chunks "
                          f"{chunk_tile.shape[0]} x block_edges {block_edges}")
+    num_tiles = r // tile_rows
+    if tuple(tile_chunks.shape) != (num_tiles,):
+        raise ValueError(f"tile_chunks must be [{num_tiles}], got "
+                         f"{tuple(tile_chunks.shape)}")
     if seen.device.type == "cpu":
         return ref.msbfs_propagate_planes_tiled_ref(
             seen, msg, tgt, chunk_tile, tile_rows, block_edges, op)
@@ -132,6 +175,7 @@ def msbfs_propagate_planes_tiled(seen: torch.Tensor, msg: torch.Tensor,
     check_arg("msg", msg, torch.int32, 2, dev)
     check_arg("tgt", tgt, torch.int32, 1, dev)
     check_arg("chunk_tile", chunk_tile, torch.int32, 1, dev)
+    check_arg("tile_chunks", tile_chunks, torch.int32, 1, dev)
     if msg.shape[1] != nw or tgt.shape[0] != msg.shape[0]:
         raise ValueError(f"shape mismatch: seen {tuple(seen.shape)} msg "
                          f"{tuple(msg.shape)} tgt {tuple(tgt.shape)}")
@@ -139,18 +183,30 @@ def msbfs_propagate_planes_tiled(seen: torch.Tensor, msg: torch.Tensor,
     if smem > MAX_SMEM_PER_BLOCK:
         raise ValueError(f"tile accumulator {smem} B exceeds the "
                          f"{MAX_SMEM_PER_BLOCK} B a block may hold")
-    num_tiles = r // tile_rows
-    # tile -> first chunk of its run (chunk_tile is nondecreasing)
-    chunk_off = torch.searchsorted(
-        chunk_tile, torch.arange(num_tiles + 1, dtype=torch.int32,
-                                 device=dev)).to(torch.int32)
-    new = torch.empty_like(seen)
+    run_first, work_off = _tile_runs(chunk_tile, tile_chunks, num_tiles,
+                                     block_edges)
+    new = torch.zeros_like(seen)        # split tiles' partial sums land here
     seen_out = torch.empty_like(seen)
-    cnt = torch.zeros((1, 1), dtype=torch.int32, device=dev)
-    err = _lib().msbfs_propagate_planes_tiled_launch(
-        seen.data_ptr(), msg.data_ptr(), tgt.data_ptr(), chunk_off.data_ptr(),
-        new.data_ptr(), seen_out.data_ptr(), cnt.data_ptr(), num_tiles,
-        tile_rows, nw, block_edges, _OP_CODE[op], stream_ptr(dev))
+    scratch = torch.zeros(num_tiles + 1, dtype=torch.int32, device=dev)
+    err = _launch_tiled(seen, msg, tgt, run_first, work_off, new, seen_out,
+                        scratch, tile_rows, op,
+                        _load_widths(seen, msg, new, seen_out, tile_rows))
     raise_on_error(err, "msbfs_propagate_planes_tiled")
     LAUNCHES["msbfs_propagate_planes_tiled"] += 1
-    return new, seen_out, cnt
+    return new, seen_out, scratch[:1].view(1, 1)
+
+
+def _launch_tiled(seen, msg, tgt, run_first, work_off, new, seen_out,
+                  scratch, tile_rows: int, op: str, widths: tuple[int, int]
+                  ) -> int:
+    """K2's C launch on checked, prepared buffers: ``new`` and ``scratch``
+    (int32[num_tiles + 1]: the count, then the tiles' arrival counters)
+    zeroed, ``widths`` = (vec, vec4) as :func:`_load_widths` gives them.
+    Returns the launch's CUDA error code."""
+    r, nw = seen.shape
+    vec, vec4 = widths
+    return _lib().msbfs_propagate_planes_tiled_launch(
+        seen.data_ptr(), msg.data_ptr(), tgt.data_ptr(), run_first.data_ptr(),
+        work_off.data_ptr(), new.data_ptr(), seen_out.data_ptr(),
+        scratch.data_ptr(), scratch[1:].data_ptr(), r // tile_rows,
+        tile_rows, nw, _OP_CODE[op], vec, vec4, stream_ptr(seen.device))

@@ -45,17 +45,21 @@ def fused_frontier_update_batch(cand_words: torch.Tensor,
     return nf, vo, cnt.reshape(-1)
 
 
-# The propagate's shared-memory budget is ``MAX_SMEM_PER_BLOCK``, the most
-# dynamic shared memory one H100 block may hold (227 KB), in the place of
-# the reference's 2 MiB VMEM budget (PROPAGATE_VMEM_BYTES).  It plays the
-# reference's three roles:
-#  * whole vs tiled: the whole-array kernel is planned only when all 4
-#    plane arrays would fit one block's shared memory, i.e. when the graph
-#    is so small that one tile would hold it (small graphs, few launches);
+# The propagate plan.  The reference tiles once the four plane arrays
+# outgrow its 2 MiB VMEM budget (PROPAGATE_VMEM_BYTES).  On the H100 the
+# auto plan is the whole-array kernel K1 at every size: the tiled path
+# must sort and bucket the whole edge budget before K2 runs, and in
+# ``chip_smoke.py`` (o)'s turns the whole-array wave won both inside the
+# 50 MB L2 (rmat20-16, B = 64, 34 MB of planes) and outside it (B = 256,
+# 134 MB), though K2 alone beat K1 at both (PERF.md).  Tiles are taken
+# when asked for (``tile_rows`` > 0) and by the msgs form, whose caller
+# gathered the messages already.
+#
+# ``MAX_SMEM_PER_BLOCK``, the most dynamic shared memory one H100 block
+# may hold (227 KB), sizes what the tiled path holds:
 #  * tile size: the tiled kernel holds one tile's accumulator (4 * nw
 #    bytes a row); budgeting 32 * nw bytes a row (1/8 of the budget per
-#    tile) keeps several tile CTAs resident on each SM and gives rmat20 at
-#    B=64 289 tiles, more than two for each of the 132 SMs;
+#    tile) keeps four of K2's persistent CTAs resident on each SM;
 #  * chunk length: a chunk of messages stays 1/8 of the budget, which
 #    bounds the pad slots the bucketing adds (at most one chunk per tile).
 
@@ -84,16 +88,14 @@ def propagate_plan(n_rows: int, nw: int,
                    tile_rows: int | None = None) -> dict:
     """Whole-array vs row-tiled selection for ``msbfs_propagate``.
 
-    ``tile_rows``: None = auto (tile iff the 4-plane footprint exceeds the
-    shared-memory budget), 0 = force whole-array, > 0 = force tiling at
+    ``tile_rows``: None = auto (the whole-array kernel at every size; see
+    the plan note above), 0 = force whole-array, > 0 = force tiling at
     that size.  Returns dict(tiled, tile_rows, num_tiles, footprint_bytes).
     """
     fp = _plane_footprint_bytes(n_rows, nw)
-    if tile_rows == 0 or (tile_rows is None and fp <= MAX_SMEM_PER_BLOCK):
+    if tile_rows is None or tile_rows == 0:
         return dict(tiled=False, tile_rows=0, num_tiles=1,
                     footprint_bytes=fp)
-    if tile_rows is None:
-        tile_rows = _auto_tile_rows(nw)
     tile_rows = int(tile_rows)
     if tile_rows < 1:
         raise ValueError(f"tile_rows must be >= 1, got {tile_rows}")
@@ -101,66 +103,100 @@ def propagate_plan(n_rows: int, nw: int,
                 num_tiles=-(-n_rows // tile_rows), footprint_bytes=fp)
 
 
-def _bucket_edges_by_tile(msg: torch.Tensor, tgt: torch.Tensor,
+def _gather_rows(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``rows[idx]`` for int32 rows.  PyTorch's CUDA row gather is many
+    times slower when a row is a multiple of 16 bytes (nw = 4, 8, ...)
+    than for 8-byte rows, so such rows are gathered as 8-byte pieces."""
+    nw = rows.shape[1]
+    if nw % 4:
+        return rows[idx]
+    k = nw // 2
+    pieces = idx[:, None] * k + torch.arange(k, device=idx.device)
+    return rows.view(-1, 2)[pieces.view(-1)].view(-1, nw)
+
+
+def _key_starts(keys_sorted: torch.Tensor, num_keys: int) -> torch.Tensor:
+    """starts[k] for k in [0, num_keys]: how many sorted keys lie below k,
+    so key k's run is starts[k]..starts[k + 1] (int64).  The bucket counts
+    without a contended ``scatter_add_``; keys above ``num_keys - 1`` (the
+    dropped edges) come after starts[num_keys]."""
+    return torch.searchsorted(keys_sorted, torch.arange(
+        num_keys + 1, dtype=keys_sorted.dtype, device=keys_sorted.device))
+
+
+def _bucket_edges_by_tile(rows: torch.Tensor, tgt: torch.Tensor,
                           ok: torch.Tensor, num_tiles: int, tile_rows: int,
-                          block_edges: int):
-    """Bucket an edge list by target row tile.
+                          block_edges: int, row_of=None):
+    """Bucket an edge list by target row tile, gathering each edge's
+    message straight into its stream slot: ``rows[row_of[e]]``, or
+    ``rows[e]`` when ``row_of`` is None (pre-gathered messages, as the
+    reference's ``_bucket_edges_by_tile`` takes them; the first three
+    outputs then equal its three).
 
-    A stable sort groups edges by ``tgt // tile_rows``, each tile's bucket
-    is cut into ``block_edges``-sized chunks, and the chunks are laid out
-    tile-major so ``chunk_tile`` is nondecreasing.  Chunk capacity follows
-    the actual bucket sizes (a hub target simply gets more chunks), within
-    the static bound ceil(m / C) + T; empty tiles get one pad chunk so
-    their P3 still runs.  Counting uses ``scatter_add_`` (``bincount``
-    synchronises with the host on CUDA).
+    A stable sort of the tile keys groups edges by ``tgt // tile_rows``
+    (int16 keys while the tile count allows, else int32); each tile's
+    bucket is cut into ``block_edges``-sized chunks, and the chunks are
+    laid out tile-major so ``chunk_tile`` is nondecreasing.  Chunk capacity
+    follows the actual bucket sizes (a hub target simply gets more
+    chunks), within the static bound ceil(m / C) + T; empty tiles get one
+    pad chunk so their P3 still runs.  The bucket sizes come from the
+    sorted keys (:func:`_key_starts`).  Each slot then finds its edge (tile,
+    rank in the tile, sorted position) and gathers it, so the stream is
+    written once.
 
-    msg: int32[m, nw] pre-gathered frontier words (invalid slots zeroed).
-    tgt: int[m] global target rows; ``ok`` False slots are dropped.
-    Returns (stream_msg int32[L, nw], stream_tgt int32[L],
-    chunk_tile int32[NC]) with L = NC * block_edges; pad slots carry
-    msg = 0 aimed at their chunk's tile base row.
+    rows: int32[k, nw] message rows; tgt: int[m] global target rows, m >
+    0; ``ok`` False slots are dropped.  Returns (stream_msg int32[L, nw],
+    stream_tgt int32[L], chunk_tile int32[NC], tile_chunks int32[T]) with
+    L = NC * block_edges; pad slots carry msg = 0 aimed at their chunk's
+    tile base row; ``tile_chunks[t]`` counts tile t's chunks that hold
+    edges (0 for an empty tile), the head of its run.
     """
-    dev = msg.device
-    m, nw = msg.shape
+    dev = tgt.device
+    m, nw = tgt.shape[0], rows.shape[1]
     t_, c_ = num_tiles, block_edges
     num_chunks = -(-m // c_) + t_
-    l_ = num_chunks * c_
-    tgt64 = tgt.to(torch.int64)
-    tile = torch.where(ok, torch.div(tgt64, tile_rows, rounding_mode="floor"),
-                       t_)
+    key = torch.int16 if t_ + 1 < 2**15 else torch.int32
+    tile = torch.where(ok, torch.div(tgt, tile_rows, rounding_mode="floor"),
+                       t_).to(key)
     tile_s, order = torch.sort(tile, stable=True)
-    counts = torch.zeros(t_ + 1, dtype=torch.int64, device=dev)
-    counts.scatter_add_(0, tile, torch.ones_like(tile))
-    zero = torch.zeros(1, dtype=torch.int64, device=dev)
-    seg_start = torch.cat([zero, torch.cumsum(counts, 0)[:-1]])
-    rank = torch.arange(m, dtype=torch.int64, device=dev) - seg_start[tile_s]
-    chunks_per_tile = (-(-counts[:t_] // c_)).clamp(min=1)
+    seg = _key_starts(tile_s, t_)
+    counts = seg[1:] - seg[:-1]
+    tile_chunks = -(-counts // c_)
+    chunks_per_tile = tile_chunks.clamp(min=1)
     cum_chunks = torch.cumsum(chunks_per_tile, 0)
-    chunk_off = torch.cat([zero, cum_chunks[:-1]])
-    pos = torch.where(tile_s < t_,
-                      chunk_off[tile_s.clamp(max=t_ - 1)] * c_ + rank, l_)
+    chunk_off = cum_chunks - chunks_per_tile
     # tile id per chunk; trailing unused chunks ride the last tile so the
     # sequence stays nondecreasing and the last tile's P3 stays last
-    chunk_tile = torch.searchsorted(
-        cum_chunks, torch.arange(num_chunks, dtype=torch.int64, device=dev),
-        right=True).clamp(max=t_ - 1)
-    # slot l_ is a trash slot for the dropped edges, sliced off below
-    stream_msg = torch.zeros((l_ + 1, nw), dtype=msg.dtype, device=dev)
-    stream_msg.index_copy_(0, pos, msg[order])
-    slot = torch.arange(l_ + 1, dtype=torch.int64, device=dev)
-    stream_tgt = chunk_tile[(slot // c_).clamp(max=num_chunks - 1)] \
-        * tile_rows
-    stream_tgt.index_copy_(0, pos, torch.where(ok, tgt64, 0)[order])
-    return (stream_msg[:l_], stream_tgt[:l_].to(torch.int32),
-            chunk_tile.to(torch.int32))
+    chunk = torch.arange(num_chunks, dtype=torch.int64, device=dev)
+    chunk_tile = torch.searchsorted(cum_chunks, chunk,
+                                    right=True).clamp(max=t_ - 1)
+    # per chunk: its first edge's rank in the tile, and that edge's
+    # sorted position; per slot: real iff its rank < the tile's count
+    first_rank = (chunk - chunk_off[chunk_tile]) * c_
+    lane = torch.arange(c_, dtype=torch.int64, device=dev)
+    real = lane < (counts[chunk_tile] - first_rank)[:, None]
+    pos = ((seg[:-1][chunk_tile] + first_rank)[:, None] + lane).clamp_(
+        max=m - 1)
+    edge = order[pos]                            # [NC, C]
+    src_row = edge if row_of is None else row_of[edge].to(torch.int64)
+    rows1 = torch.cat([rows, torch.zeros((1, nw), dtype=rows.dtype,
+                                         device=dev)])
+    stream_msg = _gather_rows(rows1, torch.where(real, src_row,
+                                                 rows.shape[0]).view(-1))
+    base = (chunk_tile * tile_rows).to(torch.int32)
+    stream_tgt = torch.where(real, tgt.to(torch.int32)[edge], base[:, None])
+    return (stream_msg, stream_tgt.view(-1), chunk_tile.to(torch.int32),
+            tile_chunks.to(torch.int32))
 
 
-def _tiled_inputs(seen_w: torch.Tensor, msg: torch.Tensor, tgt: torch.Tensor,
-                  ok: torch.Tensor, tile_rows: int, block_edges: int):
+def _tiled_inputs(seen_w: torch.Tensor, rows: torch.Tensor, row_of,
+                  tgt: torch.Tensor, ok: torch.Tensor, tile_rows: int,
+                  block_edges: int):
     """Kernel K2's inputs: ``seen`` padded to a tile multiple with all-ones
     rows (stray writes there never count as discoveries), plus the
-    bucketed stream.  Returns (seen_padded, stream_msg, stream_tgt,
-    chunk_tile)."""
+    bucketed stream of the messages ``rows[row_of[e]]`` (``row_of`` None:
+    ``rows[e]``).  Returns (seen_padded, stream_msg, stream_tgt,
+    chunk_tile, tile_chunks)."""
     n, nw = seen_w.shape
     t_ = -(-n // tile_rows)
     r_ = t_ * tile_rows
@@ -168,32 +204,23 @@ def _tiled_inputs(seen_w: torch.Tensor, msg: torch.Tensor, tgt: torch.Tensor,
         seen_w = torch.cat([seen_w, torch.full((r_ - n, nw), -1,
                                                dtype=seen_w.dtype,
                                                device=seen_w.device)])
-    sm, st, ct = _bucket_edges_by_tile(msg, tgt, ok, t_, tile_rows,
-                                       block_edges)
-    return seen_w, sm, st, ct
+    return (seen_w, *_bucket_edges_by_tile(rows, tgt, ok, t_, tile_rows,
+                                           block_edges, row_of))
 
 
-def _propagate_tiled(seen_w, msg, tgt, ok, tile_rows: int, block_edges: int,
-                     op: str):
+def _propagate_tiled(seen_w, rows, row_of, tgt, ok, tile_rows: int,
+                     block_edges: int, op: str):
     """Shared tiled-path tail: pad rows to a tile multiple, bucket, run."""
     n = seen_w.shape[0]
-    s, sm, st, ct = _tiled_inputs(seen_w, msg, tgt, ok, tile_rows,
-                                  block_edges)
     new, vout, cnt = msbfs_propagate_planes_tiled(
-        s, sm, st, ct, tile_rows=tile_rows, block_edges=block_edges, op=op)
+        *_tiled_inputs(seen_w, rows, row_of, tgt, ok, tile_rows, block_edges),
+        tile_rows, block_edges, op)
     return new[:n], vout[:n], cnt[0, 0]
 
 
 def _edge_ok(valid, src, tgt, n):
     ok = valid & (tgt >= 0) & (tgt < n)
     return ok if src is None else ok & (src >= 0) & (src < n)
-
-
-def _gather_msgs(frontier_w, src, ok):
-    """msg[e] = frontier[src[e]] where ok, else 0 (an HBM gather)."""
-    n = frontier_w.shape[0]
-    msg = frontier_w[src.to(torch.int64).clamp(0, n - 1)]
-    return torch.where(ok[:, None], msg, 0)
 
 
 def _whole_inputs(frontier_w, seen_w, src, tgt, ok, block_edges: int):
@@ -240,10 +267,10 @@ def msbfs_propagate(frontier_w: torch.Tensor, seen_w: torch.Tensor,
     ok = _edge_ok(valid, src, tgt, n)
     plan = propagate_plan(n, nw, tile_rows)
     if plan["tiled"]:
-        # pre-gather the messages: the tiled kernel streams them per tile
-        # and never reads the frontier itself
-        return _propagate_tiled(seen_w, _gather_msgs(frontier_w, src, ok),
-                                tgt, ok, plan["tile_rows"], block_edges, op)
+        # the bucketing gathers frontier rows straight into the stream:
+        # the tiled kernel never reads the frontier itself
+        return _propagate_tiled(seen_w, frontier_w, src, tgt, ok,
+                                plan["tile_rows"], block_edges, op)
     new, vout, cnt = msbfs_propagate_planes(
         *_whole_inputs(frontier_w, seen_w, src, tgt, ok, block_edges), op=op)
     return new[:-1], vout[:-1], cnt[0, 0]
@@ -256,8 +283,8 @@ def msbfs_propagate_msgs(seen_w: torch.Tensor, msg: torch.Tensor,
     """Msgs-form fused propagate: like :func:`msbfs_propagate` with the
     frontier gather already done — ``msg[e]`` is the packed word edge
     ``e`` carries into row ``tgt[e]``.  Always runs the row-tiled kernel;
-    ``tile_rows`` defaults to the auto rule.  Returns (new, seen_out,
-    new_count)."""
+    ``tile_rows`` defaults to the tile-size rule (``_auto_tile_rows``).
+    Returns (new, seen_out, new_count)."""
     n, nw = seen_w.shape
     m = tgt.shape[0]
     if m == 0:
@@ -271,8 +298,8 @@ def msbfs_propagate_msgs(seen_w: torch.Tensor, msg: torch.Tensor,
     if tile_rows < 1:
         raise ValueError(f"tile_rows must be >= 1, got {tile_rows}")
     ok = _edge_ok(valid, None, tgt, n)
-    msg = torch.where(ok[:, None], msg, 0)
-    return _propagate_tiled(seen_w, msg, tgt, ok, tile_rows, block_edges, op)
+    return _propagate_tiled(seen_w, msg, None, tgt, ok, tile_rows,
+                            block_edges, op)
 
 
 def build_page_table(starts: np.ndarray, degrees: np.ndarray, page: int,

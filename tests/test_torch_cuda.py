@@ -73,9 +73,8 @@ def test_tiled_kernel_and_both_plans(dev, n, op):
     tgt = _i(rng.integers(-2, n + 3, 300), dev)
     valid = torch.from_numpy(rng.random(300) < 0.9).to(dev)
     ok = ops._edge_ok(valid, src, tgt, n)
-    k2 = ops._tiled_inputs(seen, ops._gather_msgs(frontier, src, ok), tgt,
-                           ok, TILE, BLOCK)
-    _same(kmod.msbfs_propagate_planes_tiled(*k2, TILE, BLOCK, op=op),
+    *k2, heads = ops._tiled_inputs(seen, frontier, src, tgt, ok, TILE, BLOCK)
+    _same(kmod.msbfs_propagate_planes_tiled(*k2, heads, TILE, BLOCK, op=op),
           ref.msbfs_propagate_planes_tiled_ref(*k2, TILE, BLOCK, op=op))
     whole = ops.msbfs_propagate(frontier, seen, src, tgt, valid,
                                 block_edges=BLOCK, op=op, tile_rows=0)
@@ -83,6 +82,104 @@ def test_tiled_kernel_and_both_plans(dev, n, op):
                                 block_edges=BLOCK, op=op, tile_rows=TILE)
     _same(whole, tiled)
     torch.cuda.synchronize()
+
+
+def _k2_holds(dev, frontier, seen, src, tgt, valid, tile_rows, block,
+              msg_offset=0):
+    """K2 bit-exact against its plain version, both ops, on the bucketed
+    stream of these edges, given its run heads.  ``msg_offset``
+    words shift the message stream off its allocation's alignment."""
+    n, nw = frontier.shape
+    args = [planes_from_numpy(frontier, dev), planes_from_numpy(seen, dev),
+            _i(src, dev), _i(tgt, dev),
+            torch.from_numpy(np.asarray(valid, bool)).to(dev)]
+    ok = ops._edge_ok(args[4], args[2], args[3], n)
+    s, sm, st, ct, heads = ops._tiled_inputs(args[1], args[0], args[2],
+                                             args[3], ok, tile_rows, block)
+    if msg_offset:
+        buf = torch.empty(sm.numel() + msg_offset, dtype=torch.int32,
+                          device=dev)
+        buf[msg_offset:] = sm.reshape(-1)
+        sm = buf[msg_offset:].view(sm.shape)
+    for op in ("or", "max"):
+        want = ref.msbfs_propagate_planes_tiled_ref(s, sm, st, ct, tile_rows,
+                                                    block, op=op)
+        _same(kmod.msbfs_propagate_planes_tiled(s, sm, st, ct, heads,
+                                                tile_rows, block, op=op),
+              want)
+    torch.cuda.synchronize()
+    return heads, ct
+
+
+def _edges(n, nw, m, seed, lo=0, hi=None):
+    rng = np.random.default_rng(seed)
+    return (_words((n, nw), seed), _words((n, nw), seed + 1),
+            rng.integers(0, n, m), rng.integers(lo, n if hi is None else hi,
+                                                m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw", [1, 2, 3, 8])
+def test_tiled_kernel_word_widths(dev, nw):
+    """nw 1 and 2 (one vector load an edge), 3 (scalar), 8 (uint4
+    groups), with invalid and out-of-range slots."""
+    n, m = 40 * TILE + 5, 5000
+    f, s, src, tgt = _edges(n, nw, m, nw)
+    tgt[::7] = -1
+    valid = np.random.default_rng(nw).random(m) < 0.8
+    _k2_holds(dev, f, s, src, tgt, valid, TILE, BLOCK)
+
+
+@pytest.mark.cuda
+def test_tiled_kernel_misaligned_stream(dev):
+    """A message stream 4 bytes off its alignment takes the scalar loads."""
+    f, s, src, tgt = _edges(20 * TILE, 4, 3000, 5)
+    _k2_holds(dev, f, s, src, tgt, np.ones(3000, bool), TILE, BLOCK,
+              msg_offset=1)
+
+
+@pytest.mark.cuda
+def test_tiled_kernel_hub_tile_spans_blocks(dev):
+    """One tile takes 300,000 of 310,000 edges: its run spans hundreds of
+    the persistent grid's slices, so its parts meet in L2 and the last
+    one applies P3."""
+    n, nw, m = 64 * TILE, 2, 310_000
+    f, s, src, tgt = _edges(n, nw, m, 11)
+    tgt[:300_000] = 5 * TILE + np.arange(300_000) % TILE
+    heads, _ = _k2_holds(dev, f, s, src, tgt, np.ones(m, bool), TILE, 1024)
+    assert int(heads[5]) * 1024 >= 300_000
+
+
+@pytest.mark.cuda
+def test_tiled_kernel_every_tile_empty(dev):
+    """No valid edge: every tile's run is empty and only P3 on empty
+    candidates runs (new 0, seen copied, count 0)."""
+    f, s, src, tgt = _edges(30 * TILE, 2, 4000, 13)
+    heads, _ = _k2_holds(dev, f, s, src, tgt, np.zeros(4000, bool), TILE,
+                         BLOCK)
+    assert not heads.any()
+
+
+@pytest.mark.cuda
+def test_tiled_kernel_one_tile_holds_every_edge(dev):
+    f, s, src, tgt = _edges(30 * TILE, 2, 20_000, 17, lo=TILE,
+                            hi=2 * TILE)
+    heads, _ = _k2_holds(dev, f, s, src, tgt, np.ones(20_000, bool), TILE,
+                         BLOCK)
+    assert int((heads > 0).sum()) == 1
+
+
+@pytest.mark.cuda
+def test_tiled_kernel_trailing_pad_chunks(dev):
+    """A budget of 330,000 slots with 300 valid edges: over 10,000
+    trailing pad chunks ride the last tile; K2 reads none of them."""
+    n, m = 12 * TILE, 330_000
+    f, s, src, tgt = _edges(n, 2, m, 19)
+    valid = np.zeros(m, bool)
+    valid[np.random.default_rng(20).choice(m, 300, replace=False)] = True
+    tgt[np.flatnonzero(valid)[:20]] = n - 1
+    heads, ct = _k2_holds(dev, f, s, src, tgt, valid, TILE, BLOCK)
+    assert ct.shape[0] - int(heads.sum()) > 10_000
 
 
 @pytest.mark.cuda

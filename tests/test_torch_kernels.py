@@ -250,8 +250,8 @@ def test_bucket_edges_equal_reference(num_tiles, tile_rows, block, m):
     tgt = rng.integers(-3, n + 3, m).astype(np.int32)
     ok = (rng.random(m) < 0.8) & (tgt >= 0) & (tgt < n)
     msg = np.where(ok[:, None], msg, 0).astype(np.uint32)
-    got = ops._bucket_edges_by_tile(_p(msg), _i(tgt), _b(ok), num_tiles,
-                                    tile_rows, block)
+    *got, tile_chunks = ops._bucket_edges_by_tile(
+        _p(msg), _i(tgt), _b(ok), num_tiles, tile_rows, block)
     want = _bucket_ref(jnp.asarray(msg), jnp.asarray(tgt), jnp.asarray(ok),
                        num_tiles, tile_rows, block)
     np.testing.assert_array_equal(planes_to_numpy(got[0]),
@@ -259,12 +259,108 @@ def test_bucket_edges_equal_reference(num_tiles, tile_rows, block, m):
     for g, w in zip(got[1:], want[1:]):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
         assert g.dtype == torch.int32
+    # the run heads: each tile's chunks that hold its edges
+    counts = np.bincount(tgt[ok] // tile_rows, minlength=num_tiles)
+    np.testing.assert_array_equal(tile_chunks.numpy(), -(-counts // block))
+    assert tile_chunks.dtype == torch.int32
     # the tiled kernel's plain version on that stream == the msgs oracle
     seen = rng.integers(0, 2**32, (n, 2), dtype=np.uint32)
-    out = kmod.msbfs_propagate_planes_tiled(_p(seen), *got, tile_rows, block)
+    out = kmod.msbfs_propagate_planes_tiled(_p(seen), *got, tile_chunks,
+                                            tile_rows, block)
     want_o = _msgs_ref(jnp.asarray(seen), jnp.asarray(msg),
                        jnp.asarray(tgt), jnp.asarray(ok))
     _assert_outputs(out, want_o)
+
+
+def _pad_heavy_stream(num_tiles=6, tile_rows=16, block=8, m=40_000,
+                      real=30, seed=3):
+    """A budgeted edge list of ``m`` slots with only ``real`` valid edges:
+    its stream ends in thousands of pad chunks, all ridden by the last
+    tile.  Returns (msg, tgt, ok, bucketing outputs)."""
+    rng = np.random.default_rng(seed)
+    n = num_tiles * tile_rows
+    msg = np.zeros((m, 2), np.uint32)
+    ok = np.zeros(m, bool)
+    at = rng.choice(m, real, replace=False)
+    ok[at] = True
+    msg[at] = rng.integers(1, 2**32, (real, 2), dtype=np.uint32)
+    tgt = rng.integers(0, n, m).astype(np.int32)
+    tgt[at[:5]] = n - 1                       # the last tile has edges too
+    out = ops._bucket_edges_by_tile(_p(msg), _i(tgt), _b(ok), num_tiles,
+                                    tile_rows, block)
+    return msg, tgt, ok, out
+
+
+def test_run_ends_stop_at_real_chunks():
+    """K2's runs end at each tile's real chunks: with thousands of
+    trailing pad chunks, the last tile's run is its real chunks only,
+    where its chunks in ``chunk_tile`` span them all."""
+    t_, tr, blk = 6, 16, 8
+    msg, tgt, ok, (sm, st, ct, tc) = _pad_heavy_stream(t_, tr, blk)
+    nc = ct.shape[0]
+    counts = np.bincount(tgt[ok] // tr, minlength=t_)
+    assert counts[-1] >= 5
+    first = np.searchsorted(ct.numpy(), np.arange(t_))
+    trailing = nc - first[-1] - tc[-1].item()
+    assert trailing > 4000                    # the pad chunks of the budget
+    run_first, work_off = kmod._tile_runs(ct, tc, t_, blk)
+    np.testing.assert_array_equal(run_first.numpy(), first * blk)
+    np.testing.assert_array_equal(np.diff(work_off.numpy()),
+                                  -(-counts // blk) * blk)
+    assert np.diff(work_off.numpy())[-1] == -(-counts[-1] // blk) * blk
+    # every slot past a run's end carries a zero message
+    live = np.zeros(sm.shape[0], bool)
+    for f, w in zip(run_first.numpy(), np.diff(work_off.numpy())):
+        live[f: f + w] = True
+    assert not sm.numpy()[~live].any()
+    # the runs read no pad chunk: far fewer slots than the stream holds
+    assert work_off[-1].item() == (-(-counts // blk)).sum() * blk
+    assert work_off[-1].item() < (nc - 4000) * blk
+    # a run never reaches past the next tile's first chunk
+    short = torch.full((t_,), nc, dtype=torch.int32)
+    _, capped = kmod._tile_runs(ct, short, t_, blk)
+    np.testing.assert_array_equal(np.diff(capped.numpy()),
+                                  np.diff(np.append(first, nc)) * blk)
+
+
+@pytest.mark.parametrize("op", ["or", "max"])
+def test_tiled_wrapper_tile_chunks_equal_none(op):
+    """Given the run heads, K2's wrapper gives the words and count of its
+    plain version, which reads every chunk (no run heads), and of the
+    msgs oracle; a run-head array of the wrong length is refused."""
+    t_, tr, blk = 6, 16, 8
+    msg, tgt, ok, (sm, st, ct, tc) = _pad_heavy_stream(t_, tr, blk, seed=7)
+    n = t_ * tr
+    seen = np.random.default_rng(8).integers(0, 2**32, (n, 2),
+                                             dtype=np.uint32)
+    got = kmod.msbfs_propagate_planes_tiled(_p(seen), sm, st, ct, tc, tr,
+                                            blk, op=op)
+    for g, w in zip(got, ref.msbfs_propagate_planes_tiled_ref(
+            _p(seen), sm, st, ct, tr, blk, op=op)):
+        assert torch.equal(g, w)
+    want = _msgs_ref(jnp.asarray(seen), jnp.asarray(msg), jnp.asarray(tgt),
+                     jnp.asarray(ok), op=op)
+    _assert_outputs(got, want)
+    with pytest.raises(ValueError, match="tile_chunks"):
+        kmod.msbfs_propagate_planes_tiled(_p(seen), sm, st, ct, tc[1:], tr,
+                                          blk, op=op)
+
+
+@pytest.mark.parametrize("num_tiles,m", [(1, 50), (7, 400), (290, 20_000)])
+def test_key_start_counts_equal_scatter_add(num_tiles, m):
+    """The bucket counts from the sorted keys equal a ``scatter_add_``
+    count of the same keys, the dropped edges' bin included."""
+    rng = np.random.default_rng(num_tiles)
+    keys = torch.from_numpy(rng.integers(0, num_tiles + 1, m).astype(
+        np.int16))
+    keys_sorted, _ = torch.sort(keys, stable=True)
+    starts = ops._key_starts(keys_sorted, num_tiles + 1)
+    want = torch.zeros(num_tiles + 1, dtype=torch.int64)
+    want.scatter_add_(0, keys.to(torch.int64), torch.ones(m,
+                                                          dtype=torch.int64))
+    assert starts[0] == 0 and starts[-1] == m
+    np.testing.assert_array_equal((starts[1:] - starts[:-1]).numpy(),
+                                  want.numpy())
 
 
 def test_propagate_plan_semantics():
@@ -273,8 +369,9 @@ def test_propagate_plan_semantics():
     assert small == dict(tiled=False, tile_rows=0, num_tiles=1,
                          footprint_bytes=4 * 101 * nw * 4)
     big_n = kmod.MAX_SMEM_PER_BLOCK             # footprint >> budget
-    big = ops.propagate_plan(big_n, nw)
-    assert big["tiled"] and big["tile_rows"] == ops._auto_tile_rows(nw)
+    tr = ops._auto_tile_rows(nw)
+    big = ops.propagate_plan(big_n, nw, tile_rows=tr)
+    assert big["tiled"] and big["tile_rows"] == tr
     assert big["num_tiles"] == -(-big_n // big["tile_rows"])
     assert big["tile_rows"] % 8 == 0
     assert big["tile_rows"] * nw * 4 <= kmod.MAX_SMEM_PER_BLOCK
@@ -283,13 +380,52 @@ def test_propagate_plan_semantics():
     assert forced["tiled"] and forced["num_tiles"] == 7
     with pytest.raises(ValueError):
         ops.propagate_plan(100, nw, tile_rows=-1)
-    # rmat20 at B=64: tiled, with more than two tiles per H100 SM
-    r20 = ops.propagate_plan(1 << 20, 2)
-    assert r20["tiled"] and r20["num_tiles"] > 2 * 132
-    # the same footprint rule as the reference, given the card's budget
+    # rmat20 at B=64 and B=256: the auto plan is the whole-array kernel,
+    # the faster wave in chip_smoke.py's turns on the H100 at both
+    for b in (64, 256):
+        r20 = ops.propagate_plan(1 << 20, -(-b // 32))
+        assert not r20["tiled"]
+        assert r20["footprint_bytes"] == 4 * ((1 << 20) + 1) * (b // 32) * 4
+    # an explicit plan is the reference's, given the card's budget
     for n_rows in (100, 70000):
-        j = jops.propagate_plan(n_rows, 1, vmem_bytes=kmod.MAX_SMEM_PER_BLOCK)
-        assert j == ops.propagate_plan(n_rows, 1)
+        for t in (0, 16, tr):
+            j = jops.propagate_plan(n_rows, nw, tile_rows=t,
+                                    vmem_bytes=kmod.MAX_SMEM_PER_BLOCK)
+            assert j == ops.propagate_plan(n_rows, nw, tile_rows=t)
+
+
+@pytest.mark.parametrize("n_rows,nw", [(100, 1), (70_000, 1),
+                                       ((1 << 20) + 32, 2), (1 << 20, 8),
+                                       (1 << 22, 2)])
+def test_propagate_plan_auto_is_whole_array(n_rows, nw):
+    """Inside the L2 and far outside it, the auto plan never tiles; the
+    reference's rule (tile past its VMEM budget) would tile all but the
+    smallest."""
+    plan = ops.propagate_plan(n_rows, nw)
+    assert plan == dict(tiled=False, tile_rows=0, num_tiles=1,
+                        footprint_bytes=4 * (n_rows + 1) * nw * 4)
+    assert plan == ops.propagate_plan(n_rows, nw, tile_rows=0)
+
+
+@pytest.mark.parametrize("nw", [3, 4, 8])
+def test_bucket_edges_wide_rows_equal_reference(nw):
+    """Rows of 16 and 32 bytes (gathered as 8-byte pieces) and of 12
+    bytes bucket as the reference does."""
+    rng = np.random.default_rng(nw)
+    num_tiles, tile_rows, block, m = 5, 16, 32, 700
+    n = num_tiles * tile_rows
+    msg = rng.integers(0, 2**32, (m, nw), dtype=np.uint32)
+    tgt = rng.integers(-3, n + 3, m).astype(np.int32)
+    ok = (rng.random(m) < 0.8) & (tgt >= 0) & (tgt < n)
+    msg = np.where(ok[:, None], msg, 0).astype(np.uint32)
+    got = ops._bucket_edges_by_tile(_p(msg), _i(tgt), _b(ok), num_tiles,
+                                    tile_rows, block)
+    want = _bucket_ref(jnp.asarray(msg), jnp.asarray(tgt), jnp.asarray(ok),
+                       num_tiles, tile_rows, block)
+    np.testing.assert_array_equal(planes_to_numpy(got[0]),
+                                  np.asarray(want[0]))
+    for g, w in zip(got[1:3], want[1:]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 def test_auto_block_edges():
