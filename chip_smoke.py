@@ -13,15 +13,24 @@ them.  Phases, each failing the run on any error:
       spills of every kernel, and the dynamic shared memory a block of
       K6 and K7 takes;
   (c) kernels against their plain versions ON THE CARD, bit-exact: the
-      propagate kernels K1/K2 (both combine ops; K2 given its run heads)
-      on the adversarial cases of the kernel test suites, then on every
-      level of a real traversal of --graph at --batch roots and at 256
-      roots (K2's pad chunks logged per level, and K2 timed alone
-      through its C launch function at three load widths); the P3
-      kernels K3/K4 on adversarial word counts, then on the inputs of
-      every level of a real single-source run (K4, also timed alone
-      through its C launch function) and bool-plane wave (K3); kernel,
-      plain and bound times of each, and the cost of K3's two transposes;
+      propagate kernels K1/K2 (both combine ops; K1 in its trash-row form
+      and on the edge list as it stands with valid and n_edges none / 0 /
+      inside / m / beyond m, every launch variant at nw 1, 2, 3, 4, 8; K2
+      given its run heads) on the adversarial cases of the kernel test
+      suites, then on every level of a real traversal of --graph at
+      --batch roots and at 256 roots: K1 timed as the engine calls it
+      (``ops.msbfs_propagate(tile_rows=0)``, wrapper included) and alone
+      through its C launch function (launch plans and warp aggregation in
+      turns, an L2 window at 256 roots, its P3 and zero phases alone), its
+      bound counting the slots below n_edges and the first design's padded
+      bound beside it; K2's pad chunks logged per level, and K2 timed
+      alone at three load widths; the P3 kernels K3/K4 on adversarial word
+      counts, then on the inputs of every level of (h)'s 64 single-source
+      runs (K4 into out= buffers as the runner calls it, with fresh
+      outputs, and alone through its C launch function as launched, as one
+      CTA and as the first design's atomics) and of a bool-plane wave
+      (K3); kernel, plain and bound times of each, and the cost of K3's
+      two transposes;
   (d) the serving path: ``serve_bfs(graph, batch)`` (warm-up + timed
       wave, auto kernel plan) with launch counts reset just before; every
       plane is validated Graph500-style on the card and 4 roots against a
@@ -65,7 +74,8 @@ them.  Phases, each failing the run on any error:
       (l)-(n) rows also log the share of the bound and the ratio to the
       library time;
   (g) with --profile only: device time by kernel and the device's idle
-      share over one wave of each plan at --batch (torch.profiler).
+      share over one wave of each plan at --batch and over one
+      single-source root of (h) (torch.profiler).
 
 The last line of standard output is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -227,9 +237,15 @@ def assert_same(got, want, what: str) -> int:
 
 # -- kernel inputs ----------------------------------------------------------
 
-def whole_inputs(frontier, seen, src, tgt, valid, block_edges):
-    ok = ops._edge_ok(valid, src, tgt, frontier.shape[0])
-    return ops._whole_inputs(frontier, seen, src, tgt, ok, block_edges)
+def trash_row_inputs(frontier, seen, src, tgt, valid):
+    """K1's older call form: a trash row (frontier 0, seen all-ones)
+    appended and every dropped slot pointed at it."""
+    n, nw = frontier.shape
+    ok = ops._edge_ok(valid, src, tgt, n)
+    f1 = torch.cat([frontier, frontier.new_zeros((1, nw))])
+    s1 = torch.cat([seen, seen.new_full((1, nw), -1)])
+    return (f1, s1, torch.where(ok, src, n).to(torch.int32),
+            torch.where(ok, tgt, n).to(torch.int32))
 
 
 def tiled_inputs(frontier, seen, src, tgt, valid, tile_rows, block_edges):
@@ -292,10 +308,65 @@ def k2_alone(k2, tile_rows: int, block_edges: int, reps: int) -> dict:
     return out
 
 
-def check_k1(args, op, what) -> int:
-    got = kmod.msbfs_propagate_planes(*args, op=op)
-    want = ref.msbfs_propagate_planes_ref(*args, op=op)
+def check_k1(args, op, what, valid=None, n_edges=None) -> int:
+    got = kmod.msbfs_propagate_planes(*args, op=op, valid=valid,
+                                      n_edges=n_edges)
+    want = ref.msbfs_propagate_planes_ref(*args, op=op, valid=valid,
+                                          n_edges=n_edges)
     return assert_same(got, want, f"K1 {what} [{op}]")
+
+
+# K1's launch variants timed alone (plan, warp aggregation, L2 window);
+# the first is what the wrapper launches.  "l2" runs at WIDE_BATCH only.
+K1_VARIANTS = {
+    "kernel_only_ms": (kmod.K1_PLAN, kmod.K1_AGG, 0),
+    "no_agg_ms": (kmod.K1_PLAN, 0, 0),
+    "two_launches_ms": (kmod.PLAN_TWO, kmod.K1_AGG, 0),
+    "three_launches_ms": (kmod.PLAN_THREE, kmod.K1_AGG, 0),
+    "l2_window_ms": (kmod.PLAN_L2, kmod.K1_AGG, 1),
+}
+
+
+def k1_alone(frontier, seen, src, tgt, valid, n_edges, wide: bool,
+             reps: int) -> dict:
+    """K1 alone: outputs made once, the C launch function called back to
+    back (no wrapper, no allocation; the launch zeroes what it needs).
+    Every variant of ``K1_VARIANTS`` in turns, forward then back, each
+    giving the first one's outputs; then its P3 phase and its zero phase
+    alone.  Returns the means, the largest spread of a variant's two turns
+    over its mean, p3_ms and zero_ms."""
+    lib = kmod._lib()
+    new, seen_out = torch.empty_like(seen), torch.empty_like(seen)
+    cnt = torch.empty((1, 1), dtype=torch.int32, device=seen.device)
+    args = kmod.whole_launch_args(frontier, seen, src, tgt, valid, n_edges,
+                                  new, seen_out, cnt, "or")
+    stream = _build.stream_ptr(seen.device)
+    variants = {k: v for k, v in K1_VARIANTS.items()
+                if wide or k != "l2_window_ms"}
+
+    def run(plan, agg, l2):
+        _build.raise_on_error(lib.msbfs_propagate_planes_launch(
+            *args, plan, agg, l2, stream), f"K1 plan {plan:#x} agg {agg} "
+            f"l2 {l2}")
+
+    want = None
+    for name, v in variants.items():
+        run(*v)
+        got = (new.clone(), seen_out.clone(), cnt.clone())
+        want = want or got
+        assert_same(got, want, f"K1 variant {name}")
+    t = {name: [] for name in variants}
+    for name in [*variants, *reversed(variants)]:
+        t[name].append(time_ms(lambda: run(*variants[name]), reps))
+    if wide:
+        _build.raise_on_error(lib.msbfs_propagate_l2_release(),
+                              "K1 L2 release")
+    out = {name: float(np.mean(v)) for name, v in t.items()}
+    out["turn_spread"] = max(abs(v[0] - v[1]) / np.mean(v)
+                             for v in t.values())
+    out["p3_ms"] = time_ms(lambda: run(kmod.PHASE_P3, kmod.K1_AGG, 0), reps)
+    out["zero_ms"] = time_ms(lambda: run(0x1, kmod.K1_AGG, 0), reps)
+    return out
 
 
 def check_k2(k2, tile_rows, block_edges, op, what) -> int:
@@ -384,9 +455,15 @@ def phase_small(dev) -> int:
     cases = small_cases(dev)
     for name, f, s, src, tgt, valid in cases:
         bit31 |= bool((f < 0).any())
+        m = int(src.shape[0])
         for op in ("or", "max"):
-            err = max(err, check_k1(whole_inputs(f, s, src, tgt, valid, BLOCK),
-                                    op, name))
+            err = max(err, check_k1(trash_row_inputs(f, s, src, tgt, valid),
+                                    op, f"{name} trash-row form"))
+            for ne in (None, 0, m // 3, m, m + 7):
+                ne_t = None if ne is None else torch.tensor(
+                    ne, dtype=torch.int32, device=dev)
+                err = max(err, check_k1((f, s, src, tgt), op,
+                                        f"{name} n_edges={ne}", valid, ne_t))
             err = max(err, check_k2(
                 tiled_inputs(f, s, src, tgt, valid, TILE, BLOCK), TILE,
                 BLOCK, op, name))
@@ -406,20 +483,33 @@ def phase_small(dev) -> int:
             assert_same(got, want, f"ops msgs form {name} [{op}]")
     if not bit31:
         raise AssertionError("no small case had a word with bit 31 set")
-    log(f"(c) small cases: {len(cases)} cases x 2 ops, K1 + K2 + the three "
-        "ops paths bit-exact")
+    # every K1 launch variant gives the same words at every nw it
+    # specialises (1, 2, 4, 8) and one it does not (3), a grid far larger
+    # than the slots included
+    for nw in (1, 2, 3, 4, 8):
+        _, f, s, src, tgt, valid = cases[5]
+        f = f[:, :1].repeat(1, nw) ^ torch.arange(nw, dtype=torch.int32,
+                                                 device=dev)
+        s = s[:, :1].repeat(1, nw)
+        k1_alone(f, s, src, tgt, valid, None, True, 1)
+    log(f"(c) small cases: {len(cases)} cases x 2 ops, K1 (the trash-row "
+        "form, and valid with n_edges none / 0 / m/3 / m / m+7) + K2 + the "
+        "three ops paths bit-exact; K1's launch variants equal at nw 1, 2, "
+        "3, 4, 8")
     return err
 
 
 def capture_levels(g, roots) -> list:
     """Run the engine once (kernel path) and return the inputs of every
-    propagate call it made, one per level.  The engine never writes a
-    tensor in place, so the captured inputs stay as they were."""
+    propagate call it made, one per level: (frontier, seen, src, tgt,
+    valid, n_edges).  The engine never writes a tensor in place, so the
+    captured inputs stay as they were."""
     calls = []
     orig = ops.msbfs_propagate
 
     def spy(frontier_w, seen_w, src, tgt, valid, **kw):
-        calls.append((frontier_w, seen_w, src, tgt, valid))
+        calls.append((frontier_w, seen_w, src, tgt, valid,
+                      kw.get("n_edges")))
         return orig(frontier_w, seen_w, src, tgt, valid, **kw)
 
     ops.msbfs_propagate = spy
@@ -439,49 +529,86 @@ def bound(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
                                 else "bytes")
 
 
+def k1_bytes(frontier, src, tgt, valid, n_edges) -> tuple[int, int, dict]:
+    """K1's bound in bytes, counting the work this level needs: the src,
+    tgt and valid bytes of each slot below n_edges, the nw frontier words
+    of each real edge, a read-modify-write of the candidate words of each
+    real edge whose message is not zero, four plane arrays (P3) plus the
+    accumulator's zeroing, and the count.  Also the padded bound of the
+    first design (its whole padded edge list and four plane arrays with
+    the trash row), and the slot counts."""
+    n, nw = frontier.shape
+    m = int(src.shape[0])
+    slots = m if n_edges is None else min(max(int(n_edges), 0), m)
+    ok = ops._edge_ok(valid, src, tgt, n)[:slots]
+    msg = frontier[src[:slots].to(torch.int64).clamp(0, n - 1)]
+    real = int(ok.sum())
+    live = int((ok & (msg != 0).any(1)).sum())
+    words = n * nw
+    b = slots * 9 + real * nw * 4 + live * nw * 8 + 5 * words * 4 + 4
+    padded = -(-m // ops._auto_block_edges(m, nw)) * \
+        ops._auto_block_edges(m, nw)
+    old = 4 * (n + 1) * nw * 4 + 2 * padded * 4 + 4
+    return b, old, dict(slots=slots, real=real, live=live)
+
+
 def phase_real(g, deg: np.ndarray, graph: str, batch: int, seed: int
                ) -> dict:
     """Both kernels against their plain versions on the inputs of every
     level of one wave of ``batch`` roots (both ops), timed level by level.
     Each kernel's ms / plain_ms / bound_ms are means over the wave's
-    calls.  K2's bound counts the bytes its real edges need (the message
-    of each valid slot, and the target of each valid slot whose message is
-    not zero) and its three plane arrays; K1's, the padded edge list it
-    reads whole and its four plane arrays."""
+    calls.  K1 is timed as the engine calls it (``ops.msbfs_propagate``
+    with ``tile_rows=0`` on the level's inputs as they stand, wrapper
+    included) and alone (:func:`k1_alone`); its bound counts the work the
+    level needs (:func:`k1_bytes`), the first design's padded bound logged
+    beside it.  K2's bound counts the bytes its real edges need (the
+    message of each valid slot, and the target of each valid slot whose
+    message is not zero) and its three plane arrays."""
     roots = np.random.default_rng(seed).choice(np.flatnonzero(deg > 0),
                                                batch, replace=False)
     calls = capture_levels(g, roots)
+    wide = batch == WIDE_BATCH
     per = {name: [] for name in ("msbfs_propagate_planes",
                                  "msbfs_propagate_planes_tiled")}
-    for lvl, (frontier, seen, src, tgt, valid) in enumerate(calls):
+    for lvl, (frontier, seen, src, tgt, valid, ne) in enumerate(calls):
         n, nw = frontier.shape
         m = int(src.shape[0])
         be = ops._auto_block_edges(m, nw)
         tr = ops._auto_tile_rows(nw)
-        k1 = whole_inputs(frontier, seen, src, tgt, valid, be)
         k2 = tiled_inputs(frontier, seen, src, tgt, valid, tr, be)
-        e1 = max(check_k1(k1, op, f"{graph} B={batch} level {lvl}")
-                 for op in ("or", "max"))
-        e2 = max(check_k2(k2, tr, be, op, f"{graph} B={batch} level {lvl}")
-                 for op in ("or", "max"))
+        what = f"{graph} B={batch} level {lvl}"
+        e1 = 0
+        for op in ("or", "max"):
+            e1 = max(e1, check_k1((frontier, seen, src, tgt), op, what,
+                                  valid, ne))
+            want = ref.msbfs_propagate_planes_ref(frontier, seen, src, tgt,
+                                                  op, valid, ne)
+            got = ops.msbfs_propagate(frontier, seen, src, tgt, valid, op=op,
+                                      tile_rows=0, n_edges=ne)
+            assert_same(got, (want[0], want[1], want[2][0, 0]),
+                        f"ops tile_rows=0 {what} [{op}]")
+        e2 = max(check_k2(k2, tr, be, op, what) for op in ("or", "max"))
         (s2, sm, st, ct), heads = k2
-        ok = ops._edge_ok(valid, src, tgt, n)
-        real = int(ok.sum())
-        live = int((sm != 0).any(1).sum())     # valid, message not zero
+        live2 = int((sm != 0).any(1).sum())     # valid, message not zero
         pad = int(ct.shape[0]) - int(heads.sum())
         # the tiled path's feed: the bucket count alone (searchsorted on
         # the sorted tile keys), and the whole bucketing with its gather
+        ok = ops._edge_ok(valid, src, tgt, n)
         t_ = int(s2.shape[0]) // tr
         keys, _ = torch.sort(torch.where(ok, tgt // tr, t_).to(torch.int16))
         count_ms = time_ms(lambda: ops._key_starts(keys, t_), 5)
         feed_ms = time_ms(lambda: tiled_inputs(frontier, seen, src, tgt,
                                                valid, tr, be), 2)
-        b1 = 4 * k1[0].numel() * 4 + 2 * k1[2].numel() * 4 + 4
-        b2 = real * nw * 4 + live * 4 + 3 * s2.numel() * 4 + 4
+        b1, b1_old, sl = k1_bytes(frontier, src, tgt, valid, ne)
+        b2 = sl["real"] * nw * 4 + live2 * 4 + 3 * s2.numel() * 4 + 4
         r1 = dict(bytes=b1, bound_ms=bound(b1)[0], max_abs_err=e1,
-                  ms=time_ms(lambda: kmod.msbfs_propagate_planes(*k1), 5),
-                  plain_ms=time_ms(
-                      lambda: ref.msbfs_propagate_planes_ref(*k1), 1))
+                  padded_bound_ms=bound(b1_old)[0],
+                  ms=time_ms(lambda: ops.msbfs_propagate(
+                      frontier, seen, src, tgt, valid, tile_rows=0,
+                      n_edges=ne), 5),
+                  plain_ms=time_ms(lambda: ref.msbfs_propagate_planes_ref(
+                      frontier, seen, src, tgt, "or", valid, ne), 1),
+                  **k1_alone(frontier, seen, src, tgt, valid, ne, wide, 20))
         r2 = dict(bytes=b2, bound_ms=bound(b2)[0], max_abs_err=e2,
                   count_ms=count_ms, feed_ms=feed_ms,
                   **k2_alone(k2, tr, be, 20),
@@ -494,37 +621,49 @@ def phase_real(g, deg: np.ndarray, graph: str, batch: int, seed: int
         per["msbfs_propagate_planes_tiled"].append(r2)
         nz = int((frontier != 0).any(1).sum())
         widths = r2.pop("widths")
-        log(f"(c) B={batch} level {lvl}: budget={m} real edges={real} "
-            f"of them non-zero messages={live} frontier rows={nz} "
-            f"block_edges={be} tile_rows={tr} chunks={ct.shape[0]} pad "
-            f"chunks={pad} | K1 {r1['ms']:.4f} ms (bound "
-            f"{r1['bound_ms']:.4f}, plain {r1['plain_ms']:.3f}) | K2 "
-            f"{r2['ms']:.4f} ms (bound {r2['bound_ms']:.4f}, plain "
-            f"{r2['plain_ms']:.3f}; alone {r2['kernel_only_ms']:.4f} / "
+        k1v = " / ".join(f"{k[:-3]} {r1[k]:.4f}" for k in K1_VARIANTS
+                         if k in r1)
+        log(f"(c) B={batch} level {lvl}: budget={m} n_edges={sl['slots']} "
+            f"real edges={sl['real']} of them non-zero messages="
+            f"{sl['live']} frontier rows={nz} | K1 {r1['ms']:.4f} ms as the "
+            f"engine calls it (bound {r1['bound_ms']:.4f}, padded bound "
+            f"{r1['padded_bound_ms']:.4f}, plain {r1['plain_ms']:.3f}); "
+            f"alone {k1v} (turn spread {r1['turn_spread']:.3f}); its P3 "
+            f"phase alone {r1['p3_ms']:.4f}, zero phase {r1['zero_ms']:.4f} "
+            f"| K2 block_edges={be} tile_rows={tr} chunks={ct.shape[0]} pad "
+            f"chunks={pad}: {r2['ms']:.4f} ms (bound {r2['bound_ms']:.4f}, "
+            f"plain {r2['plain_ms']:.3f}; alone {r2['kernel_only_ms']:.4f} / "
             f"scalar P3 {r2['p3_scalar_ms']:.4f} / simple widths "
             f"{r2['simple_ms']:.4f} (vec, vec4 {widths}; turn spread "
             f"{r2['turn_spread']:.3f}), zero fill {r2['zero_ms']:.4f}; feed "
             f"{feed_ms:.3f} ms, its bucket count {count_ms:.4f} ms)")
-        del k1, k2
+        del k2
     out = {}
     for name, rows in per.items():
         out[name] = {k: float(np.mean([r[k] for r in rows]))
                      for k in rows[0] if k != "max_abs_err"}
         out[name]["max_abs_err"] = max(r["max_abs_err"] for r in rows)
         r = out[name]
-        feed = ("" if "feed_ms" not in r else
-                f" kernel_only_ms={r['kernel_only_ms']:.4f} (C launch "
-                f"function back to back, zero fill of new and counters "
-                f"included) p3_scalar_ms={r['p3_scalar_ms']:.4f} "
-                f"simple_widths_ms={r['simple_ms']:.4f} turn_spread_mean="
-                f"{r['turn_spread']:.4f} "
-                f"zero_fill_ms={r['zero_ms']:.4f} feed_ms="
-                f"{r['feed_ms']:.4f} bucket_count_ms={r['count_ms']:.4f}")
+        if "feed_ms" in r:
+            extra = (f" kernel_only_ms={r['kernel_only_ms']:.4f} (C launch "
+                     f"function back to back, zero fill of new and counters "
+                     f"included) p3_scalar_ms={r['p3_scalar_ms']:.4f} "
+                     f"simple_widths_ms={r['simple_ms']:.4f} "
+                     f"turn_spread_mean={r['turn_spread']:.4f} "
+                     f"zero_fill_ms={r['zero_ms']:.4f} feed_ms="
+                     f"{r['feed_ms']:.4f} bucket_count_ms={r['count_ms']:.4f}")
+        else:
+            extra = (" (as the engine calls it, wrapper included) alone: " +
+                     " ".join(f"{k}={r[k]:.4f}" for k in K1_VARIANTS
+                              if k in r) +
+                     f" turn_spread_mean={r['turn_spread']:.4f} p3_phase_ms="
+                     f"{r['p3_ms']:.4f} zero_phase_ms={r['zero_ms']:.4f} "
+                     f"padded_bound_ms={r['padded_bound_ms']:.4f}")
         log(f"(c) {name}: mean over {len(rows)} levels of one {graph} "
             f"B={batch} wave, both ops bit-exact on each: kernel_ms="
             f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms="
             f"{r['bound_ms']:.4f} (bytes={r['bytes']:.0f}) share_of_bound="
-            f"{r['bound_ms'] / r['ms']:.3f} library_ms=null{feed}")
+            f"{r['bound_ms'] / r['ms']:.3f} library_ms=null{extra}")
     return out
 
 
@@ -582,15 +721,16 @@ def phase_p3_small(n_pad: int, batch: int, dev) -> int:
     return err
 
 
-def capture_p3(g, root: int, roots: np.ndarray) -> tuple[list, list]:
-    """The inputs of every P3 call of one single-source run from ``root``
-    (K4) and of one bool-plane wave over ``roots`` (K3)."""
+def capture_p3(g, keys: np.ndarray, roots: np.ndarray) -> tuple[list, list]:
+    """The inputs of every P3 call of one single-source run from each of
+    ``keys`` ((h)'s runs: K4, cloned, since the runner reuses its output
+    sets two levels on) and of one bool-plane wave over ``roots`` (K3)."""
     k4, k3 = [], []
     orig4, orig3 = ops.fused_frontier_update, ops.fused_frontier_update_batch
 
-    def spy4(cand, vis):
-        k4.append((cand, vis))
-        return orig4(cand, vis)
+    def spy4(cand, vis, out=None):
+        k4.append((cand.clone(), vis.clone()))
+        return orig4(cand, vis, out=out)
 
     def spy3(cand, vis):
         k3.append((cand, vis))
@@ -599,7 +739,9 @@ def capture_p3(g, root: int, roots: np.ndarray) -> tuple[list, list]:
     ops.fused_frontier_update = spy4
     ops.fused_frontier_update_batch = spy3
     try:
-        BFSRunner(g).run(root)
+        runner = BFSRunner(g)
+        for r in keys:
+            runner.run(int(r))
         MultiSourceBFSRunner(g, packed=False).run(roots)
     finally:
         ops.fused_frontier_update = orig4
@@ -607,23 +749,51 @@ def capture_p3(g, root: int, roots: np.ndarray) -> tuple[list, list]:
     return k4, k3
 
 
-def k4_kernel_ms(c: torch.Tensor, v: torch.Tensor, reps: int) -> float:
-    """K4 alone: outputs allocated and the count zeroed once, then the C
-    launch function called back to back (no wrapper, no allocation)."""
+def k4_alone(c: torch.Tensor, v: torch.Tensor, reps: int) -> dict:
+    """K4 alone: outputs made once, the C launch function called back to
+    back (no wrapper, no allocation), in turns forward then back: as the
+    wrapper launches it (grid cap K4_MAX_GRID, K4_THREADS a block: the
+    last CTA sums the partials), as one CTA of 1024 threads, and as the
+    first design ran (K3's launch at one plane: an atomic a block into a
+    count zeroed once).  Each gives the same outputs.  Returns the means
+    and the largest spread of a variant's two turns over its mean."""
+    lib = kbu._lib()
     new, vout = torch.empty_like(c), torch.empty_like(v)
     cnt = torch.zeros((1, 1), dtype=torch.int32, device=c.device)
-    launch = kbu._lib().bitmap_update_launch
-    args = (c.data_ptr(), v.data_ptr(), new.data_ptr(), vout.data_ptr(),
-            cnt.data_ptr(), int(c.numel()), _build.stream_ptr(c.device))
-    return time_ms(lambda: _build.raise_on_error(launch(*args),
-                                                 "bitmap_update"), reps)
+    scratch = kbu.scratch_for(c.device).data_ptr()
+    ptrs = (c.data_ptr(), v.data_ptr(), new.data_ptr(), vout.data_ptr(),
+            cnt.data_ptr())
+    w, stream = int(c.numel()), _build.stream_ptr(c.device)
+    variants = {
+        "kernel_only_ms": lambda: lib.bitmap_update_launch(
+            *ptrs, scratch, w, kbu.K4_MAX_GRID, kbu.K4_THREADS, stream),
+        "one_cta_ms": lambda: lib.bitmap_update_launch(
+            *ptrs, scratch, w, 1, 1024, stream),
+        "atomic_ms": lambda: lib.bitmap_update_batch_launch(
+            *ptrs, 1, w, stream)}
+    want = ref.bitmap_update_ref(c, v)
+    for name, fn in variants.items():
+        cnt.zero_()
+        _build.raise_on_error(fn(), f"K4 {name}")
+        assert_same((new, vout, cnt), want, f"K4 alone {name}")
+    t = {name: [] for name in variants}
+    for name in [*variants, *reversed(variants)]:
+        t[name].append(time_ms(lambda: _build.raise_on_error(
+            variants[name](), "bitmap_update"), reps))
+    out = {name: float(np.mean(x)) for name, x in t.items()}
+    out["turn_spread"] = max(abs(x[0] - x[1]) / np.mean(x)
+                             for x in t.values())
+    return out
 
 
-def phase_p3_real(g, root: int, roots: np.ndarray) -> dict:
+def phase_p3_real(g, keys: np.ndarray, roots: np.ndarray) -> dict:
     """K4 and K3 against their plain versions on every level's real
-    inputs, timed level by level (means over the levels), and the two
-    [n_pad, nw] -> [nw, n_pad] transposes around each K3 call."""
-    k4, k3 = capture_p3(g, root, roots)
+    inputs, timed level by level (means over the levels): K4 over every
+    level of (h)'s 64 single-source runs, as the runner calls it (into
+    out= buffers), with fresh outputs, and alone (:func:`k4_alone`); K3
+    over one bool-plane wave, with the two [n_pad, nw] -> [nw, n_pad]
+    transposes around each call."""
+    k4, k3 = capture_p3(g, keys, roots)
     out, trans_ms = {}, []
     for name, kern, plain, calls in (
             ("bitmap_update", kbu.bitmap_update, ref.bitmap_update_ref, k4),
@@ -634,33 +804,43 @@ def phase_p3_real(g, root: int, roots: np.ndarray) -> dict:
             e = check_p3(kern, plain, c, v, f"{name} level {lvl}")
             nbytes = 4 * c.numel() * 4 + 4 * (c.shape[0] if c.dim() == 2
                                               else 1)
-            rows.append(dict(max_abs_err=e, bytes=nbytes,
-                             bound_ms=bound(nbytes)[0],
-                             ms=time_ms(lambda: kern(c, v), 20),
-                             plain_ms=time_ms(lambda: plain(c, v), 3)))
-            if name == "bitmap_update":
-                rows[-1]["kernel_only_ms"] = k4_kernel_ms(c, v, 200)
-            if c.dim() == 2:
+            row = dict(max_abs_err=e, bytes=nbytes, bound_ms=bound(nbytes)[0],
+                       plain_ms=time_ms(lambda: plain(c, v), 3))
+            if c.dim() == 1:
+                o = (torch.empty_like(c), torch.empty_like(v),
+                     torch.empty((1, 1), dtype=torch.int32, device=c.device))
+                e = max(e, assert_same(kern(c, v, out=o), plain(c, v),
+                                       f"{name} out= level {lvl}"))
+                row.update(max_abs_err=e,
+                           ms=time_ms(lambda: kern(c, v, out=o), 20),
+                           fresh_ms=time_ms(lambda: kern(c, v), 20),
+                           **k4_alone(c, v, 50))
+            else:
+                row["ms"] = time_ms(lambda: kern(c, v), 20)
                 # the engine's planes come [n_pad, nw]: two copies per call
                 cp, vp = c.T.contiguous(), v.T.contiguous()
                 trans_ms.append(time_ms(
                     lambda: (cp.T.contiguous(), vp.T.contiguous()), 20))
+            rows.append(row)
         out[name] = {k: float(np.mean([r[k] for r in rows]))
-                     for k in ("ms", "plain_ms", "bound_ms", "bytes")}
+                     for k in rows[0] if k != "max_abs_err"}
         out[name]["max_abs_err"] = max(r["max_abs_err"] for r in rows)
         r = out[name]
-        log(f"(c) {name}: mean over the {len(rows)} P3 calls of one "
-            f"{'single-source run' if c.dim() == 1 else 'bool-plane wave'}"
-            f" (shape {tuple(c.shape)}), bit-exact on each: kernel_ms="
+        where = ("(h)'s 64 single-source runs" if c.dim() == 1
+                 else "one bool-plane wave")
+        log(f"(c) {name}: mean over the {len(rows)} P3 calls of {where} "
+            f"(shape {tuple(c.shape)}), bit-exact on each: kernel_ms="
             f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms="
             f"{r['bound_ms']:.5f} (bytes={r['bytes']:.0f}) library_ms=null")
         if name == "bitmap_update":
-            r["kernel_only_ms"] = float(np.mean(
-                [row["kernel_only_ms"] for row in rows]))
-            log(f"(c) bitmap_update alone (C launch function back to back, "
-                f"outputs preallocated, count zeroed once): kernel_only_ms="
-                f"{r['kernel_only_ms']:.5f} mean over the {len(rows)} calls' "
-                f"inputs (wrapper {r['ms']:.4f}, bound {r['bound_ms']:.5f})")
+            log(f"(c) bitmap_update: wrapper into out= buffers (as the runner "
+                f"calls it) {r['ms']:.5f} ms, with fresh outputs "
+                f"{r['fresh_ms']:.5f}; alone (C launch function back to "
+                f"back): as launched {r['kernel_only_ms']:.5f}, one CTA of "
+                f"1024 threads {r['one_cta_ms']:.5f}, the first design (an "
+                f"atomic a block, count zeroed once) {r['atomic_ms']:.5f} "
+                f"(turn spread mean {r['turn_spread']:.4f}; bound "
+                f"{r['bound_ms']:.5f})")
     out["transpose_ms"] = float(np.mean(trans_ms))
     log(f"(c) K3's two input transposes ([n_pad, nw] -> [nw, n_pad], cand "
         f"and seen): {out['transpose_ms']:.4f} ms per call (mean over "
@@ -1300,23 +1480,21 @@ def phase_flash(seed: int, dev) -> dict:
     return r
 
 
-def phase_profile(graph: str, batch: int, seed: int, dev, tile_rows,
-                  top: int = 12) -> None:
-    """Device time by kernel name over one warm wave (torch.profiler), and
-    the share of the wave's host wall time the device was busy."""
+def profile_device(label: str, run, top: int = 12,
+                   keep: str = "propagate_") -> None:
+    """Device time by kernel name over one call of ``run`` (warm, ending in
+    a device sync; torch.profiler), and the share of its host wall time
+    the device was idle.  Kernels past the ``top`` whose name holds
+    ``keep`` are listed too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.launch.serve import build_engine
-    engine, deg = build_engine(graph, device=dev, tile_rows=tile_rows)
-    roots = np.random.default_rng(seed).choice(np.flatnonzero(deg > 0),
-                                               batch, replace=False)
-    engine.run(roots)                                  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.run(roots)
+        run()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
     # device-side events only (kernels, copies): a CPU op's device total
@@ -1330,14 +1508,34 @@ def phase_profile(graph: str, batch: int, seed: int, dev, tile_rows,
     rows = sorted(((ms, c, k) for k, (ms, c) in by_name.items()),
                   reverse=True)
     busy = sum(r[0] for r in rows)
-    label = f"tile_rows={tile_rows}"
-    log(f"(g) profile {graph} B={batch} {label}: wave wall {wall_ms:.2f} ms "
-        f"(profiled), device busy {busy:.2f} ms, idle share "
-        f"{1 - busy / wall_ms:.3f}")
-    shown = rows[:top] + [r for r in rows[top:] if "propagate_" in r[2]]
+    log(f"(g) profile {label}: wall {wall_ms:.2f} ms (profiled), device "
+        f"busy {busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}")
+    shown = rows[:top] + [r for r in rows[top:] if keep in r[2]]
     for ms, count, key in shown:
         log(f"(g)   {ms:9.3f} ms {100 * ms / busy:5.1f}% x{count:<5d} "
             f"{key[:90]}")
+
+
+def phase_profile(graph: str, batch: int, seed: int, dev, tile_rows) -> None:
+    """(g) One warm wave of ``batch`` roots with ``tile_rows``."""
+    from repro_torch.launch.serve import build_engine
+    engine, deg = build_engine(graph, device=dev, tile_rows=tile_rows)
+    roots = np.random.default_rng(seed).choice(np.flatnonzero(deg > 0),
+                                               batch, replace=False)
+    engine.run(roots)                                  # warm-up
+    profile_device(f"{graph} B={batch} tile_rows={tile_rows} wave",
+                   lambda: engine.run(roots))
+
+
+def phase_profile_sbfs(g, keys: np.ndarray) -> None:
+    """(g) One warm single-source root of (h): its median-time key among
+    the first five."""
+    runner = BFSRunner(g)
+    secs = [runner.run(int(r)).seconds for r in keys[:5]]
+    root = int(keys[int(np.argsort(secs)[2])])
+    runner.run(root)                                   # warm-up
+    profile_device(f"(h) single-source root {root} (BFSRunner.run)",
+                   lambda: runner.run(root), keep="p3_update")
 
 
 def main(argv=None) -> int:
@@ -1392,7 +1590,7 @@ def main(argv=None) -> int:
                                         wide[name]["max_abs_err"])
     real["msbfs_propagate_planes_tiled"] = wide["msbfs_propagate_planes_tiled"]
     p3_err = phase_p3_small(g.n_pad, args.batch, dev)
-    real.update(phase_p3_real(g, int(keys[0]), wave_roots))
+    real.update(phase_p3_real(g, keys, wave_roots))
 
     # (d) serving path, auto plan; (e) whole-array kernel
     d = phase_serve(args.graph, args.batch, args.seed, dev, None, "d")
@@ -1441,6 +1639,7 @@ def main(argv=None) -> int:
     if args.profile:
         for tr in (ops._auto_tile_rows(-(-args.batch // 32)), 0):
             phase_profile(args.graph, args.batch, args.seed, dev, tr)
+        phase_profile_sbfs(g, keys)
 
     # (f) summary
     kernels = []

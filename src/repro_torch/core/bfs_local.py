@@ -201,30 +201,35 @@ def bfs_reference(g: LocalGraph, root: int, max_iters: int | None = None):
 # Work-efficient gather pipeline (P1 -> P2 -> P3), mirroring the PE stages.
 # ---------------------------------------------------------------------------
 
-def _p3_update(cand_w, visited_w, use_kernels: bool):
-    """P3 result writing: kernel K4 (``kernels.ops``) or the plain body."""
+def _p3_update(cand_w, visited_w, use_kernels: bool, out=None):
+    """P3 result writing: kernel K4 (``kernels.ops``, into ``out`` when
+    given) or the plain body.  Returns (new, visited, count): K4's int32
+    scalar popcount of ``new``, None on the plain path."""
     if use_kernels:
         from repro_torch.kernels import ops as kops
-        new, vis2, _ = kops.fused_frontier_update(cand_w, visited_w)
-        return new, vis2
+        return kops.fused_frontier_update(cand_w, visited_w, out=out)
     new = cand_w & ~visited_w
-    return new, visited_w | new
+    return new, visited_w | new, None
 
 
-def _statvec(g: LocalGraph, new_w, visited_w, total, overflow):
-    """Fused per-level stats (single-source): one stacked int32[7]."""
+def _statvec(g: LocalGraph, new_w, visited_w, total, overflow, count=None):
+    """Fused per-level stats (single-source): one stacked int32[7].
+    ``count``: popcount(new_w) when the caller has it (K4's), which is
+    both ``SV_NF`` and ``SV_COUNT``."""
     dev = new_w.device
     fmask = bitmap.unpack(new_w, g.n_pad)
     umask = ~bitmap.unpack(visited_w, g.n_pad)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
+    if count is None:
+        count = bitmap.popcount(new_w)
     return torch.stack([
-        fmask.sum(dtype=torch.int32),
+        count,
         torch.where(fmask, g.out_deg, zero).sum(dtype=torch.int32),
         torch.where(umask, g.in_deg, zero).sum(dtype=torch.int32),
         umask.sum(dtype=torch.int32),
         torch.as_tensor(total, device=dev).to(torch.int32),
         torch.as_tensor(overflow, device=dev).to(torch.int32),
-        bitmap.popcount(new_w),
+        count,
     ])
 
 
@@ -236,25 +241,27 @@ def _sbfs_init(g: LocalGraph, roots: torch.Tensor):
 
 
 def push_step(g: LocalGraph, frontier_w, visited_w, level, lvl: int,
-              budget: int, use_kernels: bool = False):
+              budget: int, use_kernels: bool = False, out=None):
     """Push iteration: expand out-lists of frontier, filter by visited.
 
     Level update and next-level stats are folded in; returns (new,
     visited, level, statvec); the driver fetches only ``statvec``.
-    Inputs are never written."""
+    Inputs are never written; ``out`` (K4's buffers, see
+    ``kernels.bitmap_update``) must not hold them."""
     fmask = bitmap.unpack(frontier_w, g.n_pad)
     active, _ = compact_indices(fmask, g.n_pad)
     _, nbr, valid, total = expand_edges(active, g.out_indptr, g.out_indices,
                                         budget)
     unvisited = ~bitmap.test_bits(visited_w, nbr.clamp(min=0)) & valid
     cand = bitmap.from_indices_dense(torch.where(unvisited, nbr, -1), g.n_pad)
-    new, vis2 = _p3_update(cand, visited_w, use_kernels)
+    new, vis2, count = _p3_update(cand, visited_w, use_kernels, out)
     level2 = torch.where(bitmap.unpack(new, g.n_pad), lvl + 1, level)
-    return new, vis2, level2, _statvec(g, new, vis2, total, total > budget)
+    return new, vis2, level2, _statvec(g, new, vis2, total, total > budget,
+                                       count)
 
 
 def pull_step(g: LocalGraph, frontier_w, visited_w, level, lvl: int,
-              budget: int, use_kernels: bool = False):
+              budget: int, use_kernels: bool = False, out=None):
     """Pull iteration: expand in-lists of unvisited, test frontier bit."""
     umask = ~bitmap.unpack(visited_w, g.n_pad)
     unvisited, _ = compact_indices(umask, g.n_pad)
@@ -262,9 +269,10 @@ def pull_step(g: LocalGraph, frontier_w, visited_w, level, lvl: int,
                                                g.in_indices, budget)
     hit = bitmap.test_bits(frontier_w, parent.clamp(min=0)) & valid
     cand = bitmap.from_indices_dense(torch.where(hit, child, -1), g.n_pad)
-    new, vis2 = _p3_update(cand, visited_w, use_kernels)
+    new, vis2, count = _p3_update(cand, visited_w, use_kernels, out)
     level2 = torch.where(bitmap.unpack(new, g.n_pad), lvl + 1, level)
-    return new, vis2, level2, _statvec(g, new, vis2, total, total > budget)
+    return new, vis2, level2, _statvec(g, new, vis2, total, total > budget,
+                                       count)
 
 
 @dataclasses.dataclass
@@ -306,6 +314,15 @@ class BFSRunner:
         # fetched once here so the GTEPS accounting after each run is not
         # an extra (uncounted) device->host transfer
         self._out_deg_np = g.out_deg.cpu().numpy()[: g.n]
+        # K4's two output sets (new, visited, count): level k writes set
+        # k % 2 and reads the other, so a level allocates nothing for P3
+        # and a retry, which rewrites the same set, never writes its inputs
+        self._p3_out = None
+        if self.use_kernels:
+            w = g.n_pad // bitmap.WORD_BITS
+            self._p3_out = [tuple(
+                torch.empty(shape, dtype=torch.int32, device=g.device)
+                for shape in ((w,), (w,), (1, 1))) for _ in range(2)]
 
     @property
     def num_vertices(self) -> int:
@@ -348,14 +365,15 @@ class BFSRunner:
                 budget *= 2
             # retry from the PRE-step state: steps never write their inputs
             state0 = (frontier, visited, level)
+            out = self._p3_out[lvl % 2] if self._p3_out else None
             frontier, visited, level, statvec = step(
-                g, *state0, lvl, budget, self.use_kernels)
+                g, *state0, lvl, budget, self.use_kernels, out)
             sv = self._fetch(statvec)
             while bool(sv[SV_OVERFLOW]):      # HBM-reader overflow: deepen
                 overflow_retries += 1
                 budget *= 2
                 frontier, visited, level, statvec = step(
-                    g, *state0, lvl, budget, self.use_kernels)
+                    g, *state0, lvl, budget, self.use_kernels, out)
                 sv = self._fetch(statvec)
             lvl += 1
             inspected += int(sv[SV_TOTAL])

@@ -209,16 +209,20 @@ def _vp_commit(g: LocalGraph, program: VertexProgram, new_w, seen_w, value,
 
 def _propagate_edges(g: LocalGraph, frontier_w, seen_w, src, tgt, valid,
                      use_kernels: bool, combine: str = "or",
-                     tile_rows: int | None = None):
+                     tile_rows: int | None = None, n_edges=None):
     """Fused P2->P3 on packed words: cand[tgt] (+)= frontier[src], then
     new = cand & ~seen, seen |= new.  Kernel path (``kernels.ops``) or the
     plain scatter-OR.  ``tile_rows`` selects the kernel (None = auto, see
-    ``kernels.ops.propagate_plan``; 0 = whole-array, > 0 = row-tiled)."""
+    ``kernels.ops.propagate_plan``; 0 = whole-array, > 0 = row-tiled).
+    ``n_edges``: the expansion's edge total (a device scalar), the prefix
+    of slots ``valid`` may hold; the whole-array kernel reads no slot past
+    it."""
     if use_kernels:
         from repro_torch.kernels import ops as kops
         new, seen2, _ = kops.msbfs_propagate(frontier_w, seen_w, src, tgt,
                                              valid, op=combine,
-                                             tile_rows=tile_rows)
+                                             tile_rows=tile_rows,
+                                             n_edges=n_edges)
         return new, seen2
     if combine != "or":
         raise NotImplementedError(
@@ -377,7 +381,8 @@ def vp_push_step(g: LocalGraph, frontier_w, seen_w, value, lvl,
         else None
     src, nbr, valid, total = push_edges(g, frontier_w, budget)
     new, seen2 = _propagate_edges(g, frontier_w, seen_w, src, nbr, valid,
-                                  use_kernels, program.combine, tile_rows)
+                                  use_kernels, program.combine, tile_rows,
+                                  total)
     value2, statvec = _vp_commit(g, program, new, seen2, value, lvl, total,
                                  total > budget, chk)
     return new, seen2, value2, statvec
@@ -399,7 +404,7 @@ def vp_pull_step(g: LocalGraph, frontier_w, seen_w, value, lvl,
         parent, child, valid, total = pull_edges(g, seen_w, nb, budget)
         new, seen2 = _propagate_edges(g, frontier_w, seen_w, parent, child,
                                       valid, True, program.combine,
-                                      tile_rows)
+                                      tile_rows, total)
         overflow = total > budget
     elif budget:
         new, seen2, total = _propagate_pull_sparse(g, frontier_w, seen_w, nb,

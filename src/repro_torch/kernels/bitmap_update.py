@@ -5,8 +5,9 @@ C++ for Hopper (``csrc/bitmap_update.cu``, whose header note gives their
 bound and design), both computing ``new = cand & ~visited``, ``visited |
 new`` and the popcount of ``new``:
 
-* ``bitmap_update`` (K4) — one flat frontier of int32[w] words, one count;
-  the single-source ``BFSRunner``'s P3.
+* ``bitmap_update`` (K4) — one flat frontier of int32[w] words, one count
+  the kernel writes itself (no zero fill); the single-source
+  ``BFSRunner``'s P3, into ``out=`` buffers the runner keeps.
 * ``bitmap_update_batch`` (K3) — a planes-major stack int32[g, w], one
   count per plane; the bool-plane baseline's P3.
 
@@ -14,8 +15,8 @@ The TPU kernels took ``[rows, 128]`` word tiles padded to whole row
 blocks; these take any ``w`` as it is.  A tensor on the CPU goes to the
 plain version in ``kernels.ref``; a CUDA tensor launches the kernel or
 raises.  Each wrapper counts its launches in ``LAUNCHES``.  Outputs are
-fresh tensors: the engines retry an overflowed level from its pre-step
-state.
+fresh tensors, or K4's ``out=`` buffers, which may not overlap its inputs:
+the engines retry an overflowed level from its pre-step state.
 """
 from __future__ import annotations
 
@@ -30,7 +31,11 @@ LAUNCHES = {"bitmap_update": 0, "bitmap_update_batch": 0}
 
 _LIB = "bitmap_update"
 _MAX_PLANES = 65535          # the grid's y extent
+_SCRATCH_WORDS = 1 + 132 * 16    # K4's arrival counter + a partial a block
+# K4's launch shape: the grid's cap (0: none) and the block size
+K4_MAX_GRID, K4_THREADS = 0, 256
 _bound = False
+_scratch: dict = {}
 
 
 def reset_launches() -> None:
@@ -44,13 +49,24 @@ def _lib() -> ctypes.CDLL:
     if not _bound:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         f = lib.bitmap_update_launch
-        f.argtypes = [p, p, p, p, p, ll, p]
+        f.argtypes = [p, p, p, p, p, p, ll, i, i, p]
         f.restype = i
         f = lib.bitmap_update_batch_launch
         f.argtypes = [p, p, p, p, p, i, ll, p]
         f.restype = i
         _bound = True
     return lib
+
+
+def scratch_for(dev: torch.device) -> torch.Tensor:
+    """K4's scratch on the current stream of ``dev``: zeroed once, left
+    zero by every launch, so launches on one stream share it."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _scratch.get(key)
+    if buf is None:
+        buf = _scratch[key] = torch.zeros(_SCRATCH_WORDS, dtype=torch.int32,
+                                          device=dev)
+    return buf
 
 
 def _checked_device(cand: torch.Tensor, visited: torch.Tensor,
@@ -66,24 +82,64 @@ def _checked_device(cand: torch.Tensor, visited: torch.Tensor,
     return dev
 
 
-def bitmap_update(cand: torch.Tensor, visited: torch.Tensor):
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return (a.device == b.device and a.numel() > 0 and b.numel() > 0
+            and a0 < b0 + b.numel() * b.element_size()
+            and b0 < a0 + a.numel() * a.element_size())
+
+
+def _check_out(cand: torch.Tensor, visited: torch.Tensor, out) -> None:
+    """``out`` = (new, visited_out, count): int32, contiguous, on cand's
+    device, new and visited_out shaped like cand, count [1, 1]; none may
+    overlap an input or another output."""
+    if len(out) != 3:
+        raise ValueError(f"out must be (new, visited_out, count), got "
+                         f"{len(out)} tensors")
+    for name, t, shape in zip(("new", "visited_out", "count"), out,
+                              (cand.shape, cand.shape, (1, 1))):
+        check_arg(f"out {name}", t, torch.int32, len(shape), cand.device)
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"out {name} must be {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
+    ts = (cand, visited, *out)
+    for i in range(2, 5):
+        for j in range(i):
+            if _overlap(ts[i], ts[j]):
+                raise ValueError("out buffers may not overlap the inputs "
+                                 "or each other")
+
+
+def bitmap_update(cand: torch.Tensor, visited: torch.Tensor, out=None):
     """Fused P3 on one frontier (K4).
 
-    cand/visited: int32[w] packed words.  Returns (new, visited_out,
-    count int32[1, 1])."""
+    cand/visited: int32[w] packed words.  ``out``: optional (new,
+    visited_out, count int32[1, 1]) to write, none overlapping another or
+    an input.  Returns (new, visited_out, count int32[1, 1]): ``out`` when
+    given, else fresh tensors."""
+    if out is not None:
+        _check_out(cand, visited, out)
     if cand.device.type == "cpu":
-        return ref.bitmap_update_ref(cand, visited)
+        res = ref.bitmap_update_ref(cand, visited)
+        if out is None:
+            return res
+        for o, r in zip(out, res):
+            o.copy_(r)
+        return tuple(out)
     dev = _checked_device(cand, visited, 1)
-    new = torch.empty_like(cand)
-    vout = torch.empty_like(visited)
-    cnt = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    if out is None:
+        out = (torch.empty_like(cand), torch.empty_like(visited),
+               torch.empty((1, 1), dtype=torch.int32, device=dev))
+    new, vout, cnt = out
     if cand.numel():
         err = _lib().bitmap_update_launch(
             cand.data_ptr(), visited.data_ptr(), new.data_ptr(),
-            vout.data_ptr(), cnt.data_ptr(), int(cand.numel()),
-            stream_ptr(dev))
+            vout.data_ptr(), cnt.data_ptr(), scratch_for(dev).data_ptr(),
+            int(cand.numel()), K4_MAX_GRID, K4_THREADS, stream_ptr(dev))
         raise_on_error(err, "bitmap_update")
         LAUNCHES["bitmap_update"] += 1
+    else:
+        cnt.zero_()
     return new, vout, cnt
 
 

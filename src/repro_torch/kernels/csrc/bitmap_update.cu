@@ -23,9 +23,16 @@
 //    arrays are 16-byte aligned and each plane starts aligned, with a scalar
 //    tail for the last w % 4 words (and a scalar loop otherwise);
 //  * the count is reduced in the warp (__reduce_add_sync), then across the
-//    block's warps in shared memory, then added with one atomicAdd per block
-//    into the plane's int32 count, which the caller zeroes.  Integer atomics
-//    make the count independent of the order blocks finish in.
+//    block's warps in shared memory.  K3 adds each block's sum with one
+//    atomicAdd into its plane's int32 count, which the caller zeroes.  K4
+//    needs no zeroed count: each block stores its partial in a scratch
+//    array, and the last block to arrive (an arrival counter the kernel
+//    resets) sums them and stores the count; a grid of one block stores
+//    its sum directly.  Its wrapper takes optional `out=` buffers, so the
+//    single-source runner allocates nothing a level: at rmat20 the launch
+//    sits at latency and the wrapper's allocations and zero fill cost
+//    about 7x the kernel (0.0302 against 0.0042 ms, chip_smoke.py (c) on
+//    an H100).
 //
 // Count width: a count is at most w * 32, which must stay below 2^31 (rmat20
 // at B = 64 has w * 32 = 2^25 per plane).
@@ -36,6 +43,26 @@
 namespace {
 
 constexpr int kThreads = 256;
+// the grid's cap: a few waves of CTAs per SM (132 SMs) over all planes
+constexpr long long kMaxBlocks = 132LL * 16;
+
+// Sum of `v` over the block (any multiple of 32 threads up to 1024), valid
+// in thread 0.
+__device__ __forceinline__ int block_sum(int v) {
+  __shared__ int warp_sums[32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  v = __reduce_add_sync(0xffffffffu, v);
+  if (lane == 0) warp_sums[warp] = v;
+  __syncthreads();
+  v = 0;
+  if (warp == 0) {
+    v = lane < (int)(blockDim.x >> 5) ? warp_sums[lane] : 0;
+    v = __reduce_add_sync(0xffffffffu, v);
+  }
+  __syncthreads();   // warp_sums may be reused by a second call
+  return v;
+}
 
 __device__ __forceinline__ unsigned int p3_word(unsigned int c, unsigned int v,
                                                 unsigned int* v_out, int* local) {
@@ -46,11 +73,18 @@ __device__ __forceinline__ unsigned int p3_word(unsigned int c, unsigned int v,
 }
 
 // grid (blocks_per_plane, g): block (x, p) strides over plane p's w words.
+// counts: K3 (scratch null) adds each block's popcount to its plane's
+// count, which the caller zeroes.  K4 (g = 1, scratch int32[1 + grid]:
+// an arrival counter, zero between launches, then one partial a block)
+// writes the count itself: one block stores its sum; with more, each block
+// stores its partial, and the last to arrive sums them, stores the count
+// and resets the counter.
 __global__ void p3_update_kernel(const unsigned int* __restrict__ cand,
                                  const unsigned int* __restrict__ vis,
                                  unsigned int* __restrict__ new_out,
                                  unsigned int* __restrict__ vis_out,
-                                 int* __restrict__ counts, long long w, int vec) {
+                                 int* __restrict__ counts, int* scratch,
+                                 long long w, int vec) {
   const long long base = (long long)blockIdx.y * w;
   const unsigned int* c = cand + base;
   const unsigned int* v = vis + base;
@@ -85,37 +119,55 @@ __global__ void p3_update_kernel(const unsigned int* __restrict__ cand,
     vo[i] = o;
   }
 
-  __shared__ int warp_sums[kThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int wsum = __reduce_add_sync(0xffffffffu, local);
-  if (lane == 0) warp_sums[warp] = wsum;
+  __shared__ int last;
+  const int total = block_sum(local);
+  if (threadIdx.x == 0) {
+    last = 0;
+    if (scratch == nullptr) {
+      if (total) atomicAdd(&counts[blockIdx.y], total);
+    } else if (gridDim.x == 1) {
+      counts[0] = total;
+    } else {
+      scratch[1 + blockIdx.x] = total;
+      __threadfence();
+      last = atomicAdd(scratch, 1) == (int)gridDim.x - 1;
+    }
+  }
   __syncthreads();
-  if (warp == 0) {
-    const int s = lane < (kThreads / 32) ? warp_sums[lane] : 0;
-    const int total = __reduce_add_sync(0xffffffffu, s);
-    if (lane == 0 && total) atomicAdd(&counts[blockIdx.y], total);
+  if (last) {
+    __threadfence();
+    int part = 0;
+    for (unsigned int b = threadIdx.x; b < gridDim.x; b += blockDim.x)
+      part += __ldcg(scratch + 1 + b);
+    const int sum = block_sum(part);
+    if (threadIdx.x == 0) {
+      counts[0] = sum;
+      scratch[0] = 0;
+    }
   }
 }
 
 int launch(const void* cand, const void* vis, void* new_out, void* vis_out,
-           void* counts, int g, long long w, void* stream) {
+           void* counts, void* scratch, int g, long long w, int max_grid,
+           int threads, void* stream) {
   if (g <= 0 || w <= 0) return (int)cudaSuccess;
   const uintptr_t any = (uintptr_t)cand | (uintptr_t)vis | (uintptr_t)new_out |
                         (uintptr_t)vis_out;
   // every plane starts 16-byte aligned only when w is a multiple of 4
   const int vec = (any % 16 == 0) && (g == 1 || w % 4 == 0);
   const long long per_thread = vec ? 4 : 1;
-  long long blocks = (w + kThreads * per_thread - 1) / (kThreads * per_thread);
+  long long blocks = (w + threads * per_thread - 1) / (threads * per_thread);
   // grid-stride loops: a few waves of CTAs per SM over all planes suffice
-  long long cap = 132LL * 16 / g;
+  long long cap = kMaxBlocks / g;
+  if (max_grid > 0 && cap > max_grid) cap = max_grid;
   if (cap < 1) cap = 1;
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
   const dim3 grid((unsigned int)blocks, (unsigned int)g);
-  p3_update_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  p3_update_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       (const unsigned int*)cand, (const unsigned int*)vis,
-      (unsigned int*)new_out, (unsigned int*)vis_out, (int*)counts, w, vec);
+      (unsigned int*)new_out, (unsigned int*)vis_out, (int*)counts,
+      (int*)scratch, w, vec);
   return (int)cudaGetLastError();
 }
 
@@ -123,10 +175,17 @@ int launch(const void* cand, const void* vis, void* new_out, void* vis_out,
 
 extern "C" {
 
-// K4: flat words [w]; `count` (one int32) must be zeroed by the caller.
+// K4: flat words [w].  `scratch`: int32[1 + 132 * 16], zeroed once before
+// its first launch; the kernel leaves it zero again, so launches that share
+// it must not overlap (one stream).  Nothing else needs zeroing.
+// max_grid (0: no cap) and threads (a multiple of 32, at most 1024) are
+// the grid's cap and the block size.
 int bitmap_update_launch(const void* cand, const void* vis, void* new_out,
-                         void* vis_out, void* count, long long w, void* stream) {
-  return launch(cand, vis, new_out, vis_out, count, 1, w, stream);
+                         void* vis_out, void* count, void* scratch,
+                         long long w, int max_grid, int threads,
+                         void* stream) {
+  return launch(cand, vis, new_out, vis_out, count, scratch, 1, w, max_grid,
+                threads, stream);
 }
 
 // K3: planes-major words [g, w]; `counts` (g int32) must be zeroed by the
@@ -134,7 +193,8 @@ int bitmap_update_launch(const void* cand, const void* vis, void* new_out,
 int bitmap_update_batch_launch(const void* cand, const void* vis, void* new_out,
                                void* vis_out, void* counts, int g, long long w,
                                void* stream) {
-  return launch(cand, vis, new_out, vis_out, counts, g, w, stream);
+  return launch(cand, vis, new_out, vis_out, counts, nullptr, g, w, 0,
+                kThreads, stream);
 }
 
 }  // extern "C"

@@ -3,7 +3,7 @@
 // Replaces the two Pallas TPU kernels of src/repro/kernels/msbfs_propagate.py:
 //
 //   K1  msbfs_propagate_planes        (pallas_call at msbfs_propagate.py:182,
-//       body _kernel)       -> propagate_scatter_kernel + propagate_p3_kernel
+//       body _kernel)       -> propagate_whole_kernel
 //   K2  msbfs_propagate_planes_tiled  (pallas_call at msbfs_propagate.py:300,
 //       body _tiled_kernel) -> propagate_tiled_kernel
 //
@@ -13,21 +13,39 @@
 // where K1 gathers msg[e] = frontier[src[e]] itself and K2 reads messages
 // that the caller already gathered and bucketed by target row tile.
 //
-// Bound.  K1, per edge slot and word: one 4-byte gather of the frontier
-// word (random rows), the 4-byte src and tgt indices and one atomic
-// read-modify-write on the candidate word; then P3 reads cand and seen and
-// writes new and seen_out once each (4 plane arrays).  K2: the messages and
-// targets of the real edges (nw * 4 + 4 bytes an edge) and three plane
-// arrays (seen read, new and seen_out written); pad slots are no work.
-// Everything is a few bytes of work per byte moved, so the card's memory
-// system bounds both kernels, never its arithmetic.
+// Bound.  K1: the src, tgt and valid bytes of each slot it must read (the
+// slots below n_edges), the nw frontier words of each real edge, a
+// read-modify-write of the candidate words of each non-zero message, the
+// accumulator's zeroing and P3's four plane arrays (cand and seen read,
+// new and seen_out written).  K2: the messages and targets of the real
+// edges (nw * 4 + 4 bytes an edge) and three plane arrays (seen read, new
+// and seen_out written); pad slots are no work.  Everything is a few bytes
+// of work per byte moved, so the card's memory system bounds both kernels,
+// never its arithmetic.
 //
-// Design against that bound, simple first:
-//  * K1 runs edge- and word-parallel over a grid-stride loop and skips
-//    zero messages before the atomic (most frontier words are zero at the
-//    ends of a traversal).  Its candidate array is the fresh `cand` buffer
-//    the wrapper zeroed; with the plane arrays of a mid-size graph it stays
-//    in the 50 MB L2, where the global atomics resolve.
+// Design against that bound:
+//  * K1 reads the engine's edge list as it stands: src, tgt and the valid
+//    mask unmodified, and the expansion's edge total `n_edges` as a device
+//    scalar, so it reads no slot at or after min(n_edges, m) and the host
+//    never syncs.  A slot whose valid byte is 0 or whose src or tgt lies
+//    outside [0, n_rows) is dropped here, so the caller builds no trash row
+//    and no rewritten index arrays.  Its first design ran one item a (slot,
+//    word) over the whole padded budget (2^25 slots at rmat20-16), with a
+//    64-bit division and a reload of src and tgt for every word, after the
+//    wrapper had zeroed the accumulator and copied both plane arrays to
+//    append the trash row.  Now:
+//    - one slot a thread, four in flight: src (and valid) read once a
+//      slot, the row's nw words in one or two vector loads where nw is 1,
+//      2, 4 or 8 (scalars otherwise), tgt read only for a non-zero message;
+//    - warp-aggregated combines: the lanes whose targets match
+//      (__match_any_sync) reduce their words in the warp (__reduce_or_sync
+//      or __reduce_max_sync) and the group's lowest lane issues the
+//      atomic.  A pull level's slots come grouped by child, so most of its
+//      lanes share a target;
+//    - one persistent cooperative launch (occupancy x SMs CTAs, cached per
+//      device and instance) runs three phases with a grid barrier between
+//      them: zero the accumulator (the fresh `new`) and the count; scatter;
+//      P3 + popcount, one atomic a block.
 //  * K2 keeps one row tile's accumulator in shared memory, so the combines
 //    stay on the SM.  Its first design ran one CTA per tile over the tile's
 //    whole chunk run.  That lost twice: the bucketing hands every unused
@@ -69,13 +87,11 @@
 //    work.  At B = 64 (nw = 2) the P3 width makes no difference.
 //  * Counts are reduced in the block (warp shuffles) and added with one
 //    global atomicAdd per block.
-// Warp-aggregated atomics and fusing P3 into the last CTA of K1 are left
-// for later work.
-//
 // Count width: the count and the engine's statvec are int32, so n_rows * nw
 // * 32 (every bit discovered at once) must stay below 2^31: rmat20 at
 // B=256 is 2^28.  Indices into the message stream are 64-bit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -83,25 +99,18 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 256;
 constexpr int kOpOr = 0;
 constexpr int kOpMax = 1;
-constexpr int kUnroll = 4;          // K2: edges in flight a thread
+constexpr int kUnroll = 4;          // edges in flight a thread
 constexpr int kMaxBlocksPerSm = 4;  // K2: persistent CTAs an SM
 constexpr int kMaxDevices = 64;
 
 template <int OP>
 __device__ __forceinline__ void combine(unsigned int* p, unsigned int v) {
   if (OP == kOpOr) {
-    atomicOr(p, v);
-  } else {
-    atomicMax(p, v);
-  }
-}
-
-__device__ __forceinline__ void combine_global(unsigned int* p, unsigned int v,
-                                               int op) {
-  if (op == kOpOr) {
     atomicOr(p, v);
   } else {
     atomicMax(p, v);
@@ -124,45 +133,194 @@ __device__ __forceinline__ int block_sum(int v) {
   return v;
 }
 
-// K1, launch A: cand[tgt[e], w] (+)= frontier[src[e], w].
-__global__ void propagate_scatter_kernel(const unsigned int* __restrict__ frontier,
-                                         const int* __restrict__ src,
-                                         const int* __restrict__ tgt,
-                                         unsigned int* __restrict__ cand,
-                                         long long m, int nw, int n_rows, int op) {
-  const long long items = m * nw;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < items;
-       i += stride) {
-    const long long e = i / nw;
-    const int w = (int)(i - e * nw);
-    const int s = src[e];
-    const int t = tgt[e];
-    if (s < 0 || s >= n_rows || t < 0 || t >= n_rows) continue;
-    const unsigned int msg = frontier[(long long)s * nw + w];
-    if (msg == 0u) continue;
-    combine_global(&cand[(long long)t * nw + w], msg, op);
+// ---------------------------------------------------------------------------
+// K1
+// ---------------------------------------------------------------------------
+
+// K1's phases; a launch runs a nonempty subset in this order, with a grid
+// barrier between two of them (so a launch of more than one is cooperative).
+constexpr int kPhaseZero = 1;      // acc = 0, count = 0
+constexpr int kPhaseScatter = 2;   // acc[tgt] (+)= frontier[src]
+constexpr int kPhaseP3 = 4;        // new = acc & ~seen (in acc), seen_out, count
+
+struct WholeArgs {
+  const unsigned int* frontier;   // [n_rows, nw]
+  const unsigned int* seen;       // [n_rows, nw]
+  const int* src;                 // [m]
+  const int* tgt;                 // [m]
+  const unsigned char* valid;     // [m] bool, or null: every slot valid
+  const int* n_edges;             // device scalar, or null: m slots
+  unsigned int* acc;              // the candidate words; P3 leaves new here
+  unsigned int* seen_out;
+  int* count;
+  long long m;
+  long long words;                // n_rows * nw
+  int n_rows;
+  int nw;
+  int vec4;                       // zero and P3 move uint4s
+};
+
+// The NW words of one frontier row (NW = 1, 2, 4 or 8, the row aligned to
+// min(NW, 4) words), in one or two vector loads.
+template <int NW>
+__device__ __forceinline__ void load_row(const unsigned int* p,
+                                         unsigned int (&w)[NW]) {
+  if constexpr (NW == 1) {
+    w[0] = __ldg(p);
+  } else if constexpr (NW == 2) {
+    const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = x.x; w[1] = x.y;
+  } else {
+#pragma unroll
+    for (int g = 0; g < NW / 4; ++g) {
+      const uint4 x = __ldg(reinterpret_cast<const uint4*>(p) + g);
+      w[4 * g] = x.x; w[4 * g + 1] = x.y; w[4 * g + 2] = x.z; w[4 * g + 3] = x.w;
+    }
   }
 }
 
-// K1, launch B: P3 + popcount over whole plane arrays (cand may alias new).
-__global__ void propagate_p3_kernel(const unsigned int* cand,
-                                    const unsigned int* __restrict__ seen,
-                                    unsigned int* new_out,
-                                    unsigned int* __restrict__ seen_out,
-                                    int* __restrict__ count, long long words) {
-  int local = 0;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < words;
-       i += stride) {
-    const unsigned int s = seen[i];
-    const unsigned int nf = cand[i] & ~s;
-    new_out[i] = nf;
-    seen_out[i] = s | nf;
-    local += __popc(nf);
+// One candidate word's combine.  AGG: the lanes of `grp` (one target row)
+// reduce their words in the warp (OR, or unsigned MAX) and the group's
+// lowest lane issues the one atomic.
+template <int OP, bool AGG>
+__device__ __forceinline__ void emit(unsigned int* p, unsigned int v,
+                                     unsigned int grp, bool leader) {
+  if constexpr (AGG) {
+    v = OP == kOpOr ? __reduce_or_sync(grp, v) : __reduce_max_sync(grp, v);
+    if (!leader) return;
   }
-  const int total = block_sum(local);
-  if (threadIdx.x == 0 && total) atomicAdd(count, total);
+  if (v) combine<OP>(p, v);
+}
+
+// acc[tgt[s]] (+)= frontier[src[s]] over the slots s < `slots`, dropping a
+// slot whose valid byte is 0, whose src or tgt lies outside [0, n_rows) or
+// whose message is zero.  One slot a thread, kUnroll in flight; src (and
+// valid) read once a slot, tgt only for a non-zero message.  NW > 0: the
+// row's words held in registers; NW == 0: any nw, scalar loads.  The loop
+// is warp-uniform, so every lane reaches the ballot of each slot group.
+template <int OP, int NW, bool AGG>
+__device__ __forceinline__ void whole_scatter(const WholeArgs& a,
+                                              long long slots) {
+  constexpr int HW = NW > 0 ? NW : 1;
+  const int nw = NW > 0 ? NW : a.nw;
+  const int lane = threadIdx.x & 31;
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long base = (long long)blockIdx.x * kThreads + (threadIdx.x - lane);
+       base < slots; base += stride * kUnroll) {
+    int row[kUnroll];
+    unsigned int w[kUnroll][HW];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long s = base + lane + u * stride;
+      int r = -1;
+      if (s < slots && (a.valid == nullptr || __ldcs(a.valid + s)))
+        r = __ldcs(a.src + s);
+      unsigned int any = 0u;
+      if ((unsigned int)r < (unsigned int)a.n_rows) {
+        const unsigned int* f = a.frontier + (long long)r * nw;
+        if constexpr (NW > 0) {
+          load_row<NW>(f, w[u]);
+#pragma unroll
+          for (int k = 0; k < NW; ++k) any |= w[u][k];
+        } else {
+          for (int k = 0; k < nw; ++k) any |= __ldg(f + k);
+        }
+      }
+      row[u] = any ? r : -1;
+    }
+    int t[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int x = row[u] >= 0 ? __ldcs(a.tgt + base + lane + u * stride) : -1;
+      t[u] = (unsigned int)x < (unsigned int)a.n_rows ? x : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const bool live = t[u] >= 0;
+      unsigned int grp = 0u;
+      bool leader = true;
+      if constexpr (AGG) {
+        const unsigned int act = __ballot_sync(0xffffffffu, live);
+        if (!live) continue;
+        grp = __match_any_sync(act, t[u]);
+        leader = lane == __ffs(grp) - 1;
+      } else {
+        if (!live) continue;
+      }
+      unsigned int* dst = a.acc + (long long)t[u] * nw;
+      if constexpr (NW > 0) {
+#pragma unroll
+        for (int k = 0; k < NW; ++k) emit<OP, AGG>(dst + k, w[u][k], grp, leader);
+      } else {
+        const unsigned int* f = a.frontier + (long long)row[u] * nw;
+        for (int k = 0; k < nw; ++k) emit<OP, AGG>(dst + k, __ldg(f + k), grp, leader);
+      }
+    }
+  }
+}
+
+// P3 over the whole arrays, grid-stride: new = acc & ~seen written over acc
+// (read past L1: the scatter's atomics resolved in L2), seen_out = seen |
+// new.  Returns this thread's popcount.
+__device__ __forceinline__ int whole_p3(const WholeArgs& a, long long tid,
+                                        long long stride) {
+  int local = 0;
+  if (a.vec4) {
+    const uint4* s4 = reinterpret_cast<const uint4*>(a.seen);
+    uint4* c4 = reinterpret_cast<uint4*>(a.acc);
+    uint4* o4 = reinterpret_cast<uint4*>(a.seen_out);
+    for (long long i = tid; i < a.words / 4; i += stride) {
+      const uint4 s = __ldcs(s4 + i);
+      const uint4 c = __ldcg(c4 + i);
+      const uint4 nf = make_uint4(c.x & ~s.x, c.y & ~s.y, c.z & ~s.z,
+                                  c.w & ~s.w);
+      c4[i] = nf;
+      o4[i] = make_uint4(s.x | nf.x, s.y | nf.y, s.z | nf.z, s.w | nf.w);
+      local += __popc(nf.x) + __popc(nf.y) + __popc(nf.z) + __popc(nf.w);
+    }
+  } else {
+    for (long long i = tid; i < a.words; i += stride) {
+      const unsigned int s = __ldcs(a.seen + i);
+      const unsigned int nf = __ldcg(a.acc + i) & ~s;
+      a.acc[i] = nf;
+      a.seen_out[i] = s | nf;
+      local += __popc(nf);
+    }
+  }
+  return local;
+}
+
+// K1: the phases in `phases`, a grid barrier between two of them.  The slot
+// count is min(*n_edges, m) (m without n_edges), clamped at 0.
+template <int OP, int NW, bool AGG>
+__global__ void __launch_bounds__(kThreads)
+propagate_whole_kernel(WholeArgs a, int phases) {
+  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kThreads;
+  if (phases & kPhaseZero) {
+    if (a.vec4) {
+      uint4* z = reinterpret_cast<uint4*>(a.acc);
+      for (long long i = tid; i < a.words / 4; i += stride)
+        z[i] = make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      for (long long i = tid; i < a.words; i += stride) a.acc[i] = 0u;
+    }
+    if (tid == 0) *a.count = 0;
+    if (phases & (kPhaseScatter | kPhaseP3)) cg::this_grid().sync();
+  }
+  if (phases & kPhaseScatter) {
+    long long slots = a.m;
+    if (a.n_edges != nullptr) {
+      const long long n = *a.n_edges;
+      slots = n < 0 ? 0 : (n < slots ? n : slots);
+    }
+    whole_scatter<OP, NW, AGG>(a, slots);
+    if (phases & kPhaseP3) cg::this_grid().sync();
+  }
+  if (phases & kPhaseP3) {
+    const int total = block_sum(whole_p3(a, tid, stride));
+    if (threadIdx.x == 0 && total) atomicAdd(a.count, total);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -363,14 +521,6 @@ propagate_tiled_kernel(const unsigned int* __restrict__ seen,
   if (threadIdx.x == 0 && total) atomicAdd(count, total);
 }
 
-int grid_for(long long items) {
-  long long blocks = (items + kThreads - 1) / kThreads;
-  // grid-stride loops: a few waves of CTAs per SM are enough
-  const long long cap = 132LL * 16;
-  if (blocks > cap) blocks = cap;
-  return blocks < 1 ? 1 : (int)blocks;
-}
-
 template <int OP, int VEC>
 cudaError_t launch_tiled(const void* seen, const void* msg, const void* tgt,
                          const void* run_first, const void* work_off,
@@ -427,29 +577,177 @@ cudaError_t sm_count(int* sms) {
   return cudaSuccess;
 }
 
+// The cooperative grid of one K1 instance, every CTA resident at once:
+// its occupancy at kThreads times the SM count, cached per device and
+// instance.
+template <int OP, int NW, bool AGG>
+cudaError_t whole_grid(int* grid) {
+  static int cached[kMaxDevices];
+  static std::mutex lock;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(lock);
+  if (cached[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = sm_count(&sms);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, propagate_whole_kernel<OP, NW, AGG>, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+    cached[dev] = sms * per_sm;
+  }
+  *grid = cached[dev];
+  return cudaSuccess;
+}
+
+// The persisting L2 set-aside an l2 launch took, per device (0: none).
+size_t set_aside[kMaxDevices];
+
+// An L2 access-policy window over the accumulator: persisting for a launch
+// that scatters, normal (which returns the lines to normal) for one that
+// does not.  The persisting set-aside is set to the card's maximum once.
+cudaError_t acc_window(const WholeArgs& a, bool persist,
+                       cudaAccessPolicyWindow* w) {
+  static std::mutex lock;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int max_persist = 0, max_window = 0;
+  err = cudaDeviceGetAttribute(&max_persist,
+                               cudaDevAttrMaxPersistingL2CacheSize, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&max_window,
+                               cudaDevAttrMaxAccessPolicyWindowSize, dev);
+  if (err != cudaSuccess) return err;
+  {
+    std::lock_guard<std::mutex> hold(lock);
+    if (set_aside[dev] == 0) {
+      err = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize,
+                               (size_t)max_persist);
+      if (err != cudaSuccess) return err;
+      set_aside[dev] = (size_t)max_persist;
+    }
+  }
+  size_t bytes = (size_t)a.words * sizeof(unsigned int);
+  if (bytes > (size_t)max_window) bytes = (size_t)max_window;
+  w->base_ptr = a.acc;
+  w->num_bytes = bytes;
+  w->hitRatio = !persist || bytes <= set_aside[dev]
+                    ? 1.0f
+                    : (float)((double)set_aside[dev] / (double)bytes);
+  w->hitProp = persist ? cudaAccessPropertyPersisting : cudaAccessPropertyNormal;
+  w->missProp = cudaAccessPropertyStreaming;
+  return cudaSuccess;
+}
+
+// K1's launches.  `plan` lists each launch's phases, one hex digit a launch,
+// the lowest first: 0x7 is one cooperative launch, 0x61 a zero launch and
+// then a cooperative scatter + P3, 0x421 three plain launches.  A launch of
+// more than one phase is cooperative.  l2: an access-policy window on the
+// accumulator for every launch (P3 must then run alone, after the scatter).
+template <int OP, int NW, bool AGG>
+cudaError_t launch_whole(const WholeArgs& a, int plan, int l2,
+                         cudaStream_t st) {
+  int grid = 0;
+  cudaError_t err = whole_grid<OP, NW, AGG>(&grid);
+  if (err != cudaSuccess) return err;
+  for (; plan; plan >>= 4) {
+    const int phases = plan & 0xf;
+    if (l2 && (phases & kPhaseP3) && phases != kPhaseP3)
+      return cudaErrorInvalidValue;
+    cudaLaunchAttribute attrs[2];
+    unsigned int n = 0;
+    if (phases & (phases - 1)) {
+      attrs[n].id = cudaLaunchAttributeCooperative;
+      attrs[n].val.cooperative = 1;
+      ++n;
+    }
+    if (l2) {
+      attrs[n].id = cudaLaunchAttributeAccessPolicyWindow;
+      err = acc_window(a, (phases & kPhaseScatter) != 0,
+                       &attrs[n].val.accessPolicyWindow);
+      if (err != cudaSuccess) return err;
+      ++n;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned int)grid);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = st;
+    cfg.attrs = attrs;
+    cfg.numAttrs = n;
+    err = cudaLaunchKernelEx(&cfg, propagate_whole_kernel<OP, NW, AGG>, a,
+                             phases);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
-// K1.  `cand` must be zeroed by the caller; it is overwritten with `new`
-// (the P3 pass reads each word before it writes the same word).
+// K1.  frontier / seen / new_out / seen_out: [n_rows, nw] words; src / tgt:
+// int32[m]; valid: bool[m] or null; n_edges: a device int32 scalar or
+// null.  Nothing needs zeroing: the zero phase clears new_out (the
+// accumulator) and the count.  plan / agg / l2: see launch_whole (the
+// wrapper passes the chosen ones).
 int msbfs_propagate_planes_launch(const void* frontier, const void* seen,
-                                  const void* src, const void* tgt, void* cand,
-                                  void* seen_out, void* count, long long m,
-                                  int n_rows, int nw, int op, void* stream) {
+                                  const void* src, const void* tgt,
+                                  const void* valid, const void* n_edges,
+                                  void* new_out, void* seen_out, void* count,
+                                  long long m, int n_rows, int nw, int op,
+                                  int plan, int agg, int l2, void* stream) {
+  WholeArgs a;
+  a.frontier = (const unsigned int*)frontier;
+  a.seen = (const unsigned int*)seen;
+  a.src = (const int*)src;
+  a.tgt = (const int*)tgt;
+  a.valid = (const unsigned char*)valid;
+  a.n_edges = (const int*)n_edges;
+  a.acc = (unsigned int*)new_out;
+  a.seen_out = (unsigned int*)seen_out;
+  a.count = (int*)count;
+  a.m = m;
+  a.words = (long long)n_rows * nw;
+  a.n_rows = n_rows;
+  a.nw = nw;
+  const uintptr_t planes = (uintptr_t)seen | (uintptr_t)new_out |
+                           (uintptr_t)seen_out;
+  a.vec4 = a.words % 4 == 0 && planes % 16 == 0;
+  // rows held in registers where nw is 1, 2, 4 or 8 and the frontier is
+  // aligned to the vector load; any other nw reads scalars
+  const uintptr_t f = (uintptr_t)frontier;
+  const int row = nw == 1                          ? 1
+                  : nw == 2 && f % 8 == 0          ? 2
+                  : (nw == 4 || nw == 8) && f % 16 == 0 ? nw
+                                                   : 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (m > 0) {
-    propagate_scatter_kernel<<<grid_for(m * nw), kThreads, 0, st>>>(
-        (const unsigned int*)frontier, (const int*)src, (const int*)tgt,
-        (unsigned int*)cand, m, nw, n_rows, op);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  const long long words = (long long)n_rows * nw;
-  propagate_p3_kernel<<<grid_for(words), kThreads, 0, st>>>(
-      (const unsigned int*)cand, (const unsigned int*)seen, (unsigned int*)cand,
-      (unsigned int*)seen_out, (int*)count, words);
-  return (int)cudaGetLastError();
+#define K1_CASE(OPV, NWV)                                                   \
+  if (op == OPV && row == NWV)                                              \
+    return (int)(agg ? launch_whole<OPV, NWV, true>(a, plan, l2, st)        \
+                     : launch_whole<OPV, NWV, false>(a, plan, l2, st));
+  K1_CASE(kOpOr, 0) K1_CASE(kOpOr, 1) K1_CASE(kOpOr, 2) K1_CASE(kOpOr, 4)
+  K1_CASE(kOpOr, 8) K1_CASE(kOpMax, 0) K1_CASE(kOpMax, 1) K1_CASE(kOpMax, 2)
+  K1_CASE(kOpMax, 4) K1_CASE(kOpMax, 8)
+#undef K1_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// Measurement only: drop the persisting L2 set-aside that an l2 launch
+// took, and return every persisting line to normal.
+int msbfs_propagate_l2_release(void) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < kMaxDevices) set_aside[dev] = 0;
+  err = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, 0);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaCtxResetPersistingL2Cache();
 }
 
 // K2.  run_first / work_off: int64[num_tiles] / int64[num_tiles + 1] (see

@@ -4,9 +4,11 @@ Port of ``repro.kernels.msbfs_propagate``.  Two kernels, hand-written in
 CUDA C++ for Hopper (``csrc/msbfs_propagate.cu``, whose header note gives
 their bound and design):
 
-* ``msbfs_propagate_planes`` (K1) — whole plane arrays with a trash row;
-  gathers ``frontier[src]`` and scatter-combines into a zeroed candidate
-  array with global atomics, then a P3 + popcount launch.
+* ``msbfs_propagate_planes`` (K1) — whole plane arrays and the engine's
+  edge list as it stands (src, tgt, the valid mask and the expansion's
+  edge total on the device); one persistent cooperative launch zeroes the
+  accumulator, scatter-combines ``frontier[src]`` into it one slot a
+  thread with warp-aggregated global atomics, then applies P3 + popcount.
 * ``msbfs_propagate_planes_tiled`` (K2) — pre-gathered messages bucketed
   by target row tile; a persistent grid cuts the tiles' runs into equal
   slices, each tile's accumulator in shared memory, a tile split across
@@ -36,6 +38,17 @@ _OP_CODE = {"or": 0, "max": 1}
 _LIB = "msbfs_propagate"
 _bound = False
 
+# K1's launch plans (``csrc/msbfs_propagate.cu``, ``launch_whole``): each
+# hex digit one launch's phases (1 zero, 2 scatter, 4 P3), lowest first.
+PLAN_ONE = 0x7           # one cooperative launch, grid barriers between
+PLAN_TWO = 0x61          # a zero launch, then a cooperative scatter + P3
+PLAN_THREE = 0x421       # three plain launches
+PLAN_L2 = 0x43           # cooperative zero + scatter, then P3 alone
+PHASE_P3 = 0x4
+# what the wrapper launches: the plan, and warp-aggregated combines (1) or
+# one atomic a non-zero word (0)
+K1_PLAN, K1_AGG = PLAN_ONE, 1
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -48,25 +61,31 @@ def _lib() -> ctypes.CDLL:
     if not _bound:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         f = lib.msbfs_propagate_planes_launch
-        f.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, p]
+        f.argtypes = [p, p, p, p, p, p, p, p, p, ll, i, i, i, i, i, i, p]
         f.restype = i
         f = lib.msbfs_propagate_planes_tiled_launch
         f.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         f.restype = i
+        lib.msbfs_propagate_l2_release.argtypes = []
+        lib.msbfs_propagate_l2_release.restype = i
         _bound = True
     return lib
 
 
 def msbfs_propagate_planes(frontier: torch.Tensor, seen: torch.Tensor,
                            src: torch.Tensor, tgt: torch.Tensor,
-                           op: str = "or"):
+                           op: str = "or", valid: torch.Tensor | None = None,
+                           n_edges: torch.Tensor | int | None = None):
     """Fused gather/scatter-combine/P3 over packed plane words (K1).
 
-    frontier/seen: int32[n_rows, nw]; the caller appends a trash row
-        (frontier 0, seen all-ones) so invalid edges can point at row
-        ``n_rows - 1`` and contribute nothing to the count.
-    src/tgt: int32[m] in [0, n_rows) (the kernel also skips any slot
-        outside that range).
+    frontier/seen: int32[n_rows, nw].
+    src/tgt: int32[m]; a slot is dropped where src or tgt lies outside
+        ``[0, n_rows)``, where ``valid`` (bool[m], optional) is False, or
+        at and after ``n_edges`` (optional: a device int32 scalar, such as
+        the expansion's edge total, or an int; beyond m it means m).  The
+        kernel reads no slot at or after min(n_edges, m).  The older
+        contract, a trash row (frontier 0, seen all-ones) that dropped
+        slots point at, still holds: such slots add nothing.
     Returns (new, seen_out, count int32[1, 1]) with
     new = scatter_combine(frontier[src] -> tgt) & ~seen, seen_out =
     seen | new, count = popcount(new).
@@ -74,7 +93,24 @@ def msbfs_propagate_planes(frontier: torch.Tensor, seen: torch.Tensor,
     if op not in _OP_CODE:
         raise ValueError(f"op must be one of {sorted(_OP_CODE)}, got {op!r}")
     if frontier.device.type == "cpu":
-        return ref.msbfs_propagate_planes_ref(frontier, seen, src, tgt, op)
+        return ref.msbfs_propagate_planes_ref(frontier, seen, src, tgt, op,
+                                              valid=valid, n_edges=n_edges)
+    new, seen_out = torch.empty_like(frontier), torch.empty_like(seen)
+    cnt = torch.empty((1, 1), dtype=torch.int32, device=frontier.device)
+    args = whole_launch_args(frontier, seen, src, tgt, valid, n_edges, new,
+                             seen_out, cnt, op)
+    raise_on_error(_lib().msbfs_propagate_planes_launch(
+        *args, K1_PLAN, K1_AGG, 0, stream_ptr(frontier.device)),
+        "msbfs_propagate_planes")
+    LAUNCHES["msbfs_propagate_planes"] += 1
+    return new, seen_out, cnt
+
+
+def whole_launch_args(frontier, seen, src, tgt, valid, n_edges, new,
+                      seen_out, cnt, op: str) -> tuple:
+    """K1's checked arguments for its C launch function, up to the plan:
+    (frontier, seen, src, tgt, valid, n_edges, new, seen_out, count, m,
+    n_rows, nw, op).  An int ``n_edges`` is clamped into m here."""
     dev = frontier.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -82,21 +118,32 @@ def msbfs_propagate_planes(frontier: torch.Tensor, seen: torch.Tensor,
     check_arg("seen", seen, torch.int32, 2, dev)
     check_arg("src", src, torch.int32, 1, dev)
     check_arg("tgt", tgt, torch.int32, 1, dev)
-    if seen.shape != frontier.shape or src.shape != tgt.shape:
+    m = int(src.shape[0])
+    if seen.shape != frontier.shape or tgt.shape != src.shape:
         raise ValueError(f"shape mismatch: frontier {tuple(frontier.shape)} "
                          f"seen {tuple(seen.shape)} src {tuple(src.shape)} "
                          f"tgt {tuple(tgt.shape)}")
+    vptr = None
+    if valid is not None:
+        check_arg("valid", valid, torch.bool, 1, dev)
+        if valid.shape != src.shape:
+            raise ValueError(f"valid {tuple(valid.shape)} must match src "
+                             f"{tuple(src.shape)}")
+        vptr = valid.data_ptr()
+    nptr = None
+    if isinstance(n_edges, torch.Tensor):
+        if n_edges.device != dev or n_edges.dtype != torch.int32 \
+                or n_edges.numel() != 1:
+            raise ValueError("n_edges must be one int32 on the frontier's "
+                             f"device, got {n_edges.dtype} "
+                             f"{tuple(n_edges.shape)} on {n_edges.device}")
+        nptr = n_edges.data_ptr()
+    elif n_edges is not None:
+        m = min(max(int(n_edges), 0), m)
     n_rows, nw = frontier.shape
-    new = torch.zeros_like(frontier)          # the candidate accumulator
-    seen_out = torch.empty_like(seen)
-    cnt = torch.zeros((1, 1), dtype=torch.int32, device=dev)
-    err = _lib().msbfs_propagate_planes_launch(
-        frontier.data_ptr(), seen.data_ptr(), src.data_ptr(), tgt.data_ptr(),
-        new.data_ptr(), seen_out.data_ptr(), cnt.data_ptr(),
-        int(src.shape[0]), n_rows, nw, _OP_CODE[op], stream_ptr(dev))
-    raise_on_error(err, "msbfs_propagate_planes")
-    LAUNCHES["msbfs_propagate_planes"] += 1
-    return new, seen_out, cnt
+    return (frontier.data_ptr(), seen.data_ptr(), src.data_ptr(),
+            tgt.data_ptr(), vptr, nptr, new.data_ptr(), seen_out.data_ptr(),
+            cnt.data_ptr(), m, n_rows, nw, _OP_CODE[op])
 
 
 def _tile_runs(chunk_tile: torch.Tensor, tile_chunks: torch.Tensor,

@@ -3,10 +3,11 @@
 
 ``fused_frontier_update`` and ``fused_frontier_update_batch`` are the P3
 entries of the single-source runner and the bool-plane baseline.
-``msbfs_propagate`` masks invalid and out-of-range edges, appends the
-trash row, pads the edge list to whole chunks and picks the kernel with
-``propagate_plan``; ``msbfs_propagate_msgs`` is the tiled entry for
-messages gathered elsewhere.  Everything here is plain PyTorch with sizes
+``msbfs_propagate`` picks the kernel with ``propagate_plan``: the
+whole-array kernel takes the engine's edge list as it stands (it drops
+invalid and out-of-range slots itself), the tiled path masks and buckets
+it; ``msbfs_propagate_msgs`` is the tiled entry for messages gathered
+elsewhere.  Everything here is plain PyTorch with sizes
 fixed by Python ints, so no call synchronises with the host.
 
 ``build_page_table`` / ``read_neighbor_pages`` (the HBM reader, kernel K5)
@@ -27,13 +28,15 @@ from repro_torch.kernels.pull_spmv import pull_spmv_blocks
 
 
 def fused_frontier_update(cand_words: torch.Tensor,
-                          visited_words: torch.Tensor):
-    """P3 update on flat int32[w] words; returns (new, visited, count).
+                          visited_words: torch.Tensor, out=None):
+    """P3 update on flat int32[w] words; returns (new, visited, count), the
+    count an int32 scalar view.  ``out``: optional (new, visited, count
+    int32[1, 1]) buffers for kernel K4 to write (see ``bitmap_update``).
 
     The reference pads ``w`` to 128-word rows in blocks of at most 16 rows
     (``_pad_rows_to_block``, the TPU's grid plan); kernel K4 takes any
     ``w`` as it is, so nothing is padded here."""
-    nf, vo, cnt = bitmap_update(cand_words, visited_words)
+    nf, vo, cnt = bitmap_update(cand_words, visited_words, out=out)
     return nf, vo, cnt[0, 0]
 
 
@@ -65,7 +68,8 @@ def fused_frontier_update_batch(cand_words: torch.Tensor,
 
 
 def _plane_footprint_bytes(n_rows: int, nw: int) -> int:
-    """Whole-array working set: 4 plane arrays incl. the trash row."""
+    """Whole-array working set: 4 plane arrays incl. the trash row (the
+    reference's rule, which ``propagate_plan`` reports as it is)."""
     return 4 * (n_rows + 1) * nw * 4
 
 
@@ -223,29 +227,10 @@ def _edge_ok(valid, src, tgt, n):
     return ok if src is None else ok & (src >= 0) & (src < n)
 
 
-def _whole_inputs(frontier_w, seen_w, src, tgt, ok, block_edges: int):
-    """Kernel K1's inputs: the trash row n (frontier 0, so it contributes
-    nothing; seen all-ones, so it never counts) and the edge list pointed
-    at it where not ``ok``, padded to whole ``block_edges`` chunks."""
-    n, nw = frontier_w.shape
-    dev = frontier_w.device
-    f1 = torch.cat([frontier_w, torch.zeros((1, nw), dtype=frontier_w.dtype,
-                                            device=dev)])
-    s1 = torch.cat([seen_w, torch.full((1, nw), -1, dtype=seen_w.dtype,
-                                       device=dev)])
-    m = src.shape[0]
-    pad = (-m) % block_edges
-    sidx = torch.full((m + pad,), n, dtype=torch.int32, device=dev)
-    tidx = torch.full((m + pad,), n, dtype=torch.int32, device=dev)
-    sidx[:m] = torch.where(ok, src.to(torch.int32), n)
-    tidx[:m] = torch.where(ok, tgt.to(torch.int32), n)
-    return f1, s1, sidx, tidx
-
-
 def msbfs_propagate(frontier_w: torch.Tensor, seen_w: torch.Tensor,
                     src: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor,
                     block_edges: int | None = None, op: str = "or",
-                    tile_rows: int | None = None):
+                    tile_rows: int | None = None, n_edges=None):
     """Fused P2->P3 propagate: gather ``frontier_w[src]`` words and
     scatter-combine them into the candidate planes at ``tgt`` (``op``:
     "or" for bit-planes, "max" for payload planes), then commit
@@ -253,27 +238,34 @@ def msbfs_propagate(frontier_w: torch.Tensor, seen_w: torch.Tensor,
 
     frontier_w/seen_w: int32[n_pad, nw] packed plane words.
     src/tgt: int[m] edge endpoints; slots with ``valid`` False (or any
-    out-of-range index) are dropped.  ``tile_rows`` picks the kernel (see
-    :func:`propagate_plan`); ``block_edges`` (None = auto) is the chunk
-    length of the padded edge list.  Returns (new, seen_out, new_count).
+    out-of-range index), and slots at and after ``n_edges`` (optional: the
+    expansion's edge total as a device int32 scalar, or an int), are
+    dropped.  ``tile_rows`` picks the kernel (see :func:`propagate_plan`);
+    ``block_edges`` (None = auto) is the tiled path's chunk length.  The
+    whole-array kernel reads the inputs as they are and no slot at or
+    after ``n_edges``.  Returns (new, seen_out, new_count).
     """
     n, nw = frontier_w.shape
     m = src.shape[0]
     if m == 0:
         return (torch.zeros_like(frontier_w), seen_w,
                 torch.zeros((), dtype=torch.int32, device=seen_w.device))
-    if block_edges is None:
-        block_edges = _auto_block_edges(m, nw)
-    ok = _edge_ok(valid, src, tgt, n)
     plan = propagate_plan(n, nw, tile_rows)
     if plan["tiled"]:
+        if block_edges is None:
+            block_edges = _auto_block_edges(m, nw)
+        ok = _edge_ok(valid, src, tgt, n)
+        if n_edges is not None:
+            ok &= torch.arange(m, dtype=torch.int32, device=src.device) \
+                < n_edges
         # the bucketing gathers frontier rows straight into the stream:
         # the tiled kernel never reads the frontier itself
         return _propagate_tiled(seen_w, frontier_w, src, tgt, ok,
                                 plan["tile_rows"], block_edges, op)
     new, vout, cnt = msbfs_propagate_planes(
-        *_whole_inputs(frontier_w, seen_w, src, tgt, ok, block_edges), op=op)
-    return new[:-1], vout[:-1], cnt[0, 0]
+        frontier_w, seen_w, src.to(torch.int32), tgt.to(torch.int32), op=op,
+        valid=valid, n_edges=n_edges)
+    return new, vout, cnt[0, 0]
 
 
 def msbfs_propagate_msgs(seen_w: torch.Tensor, msg: torch.Tensor,

@@ -73,14 +73,26 @@ def _p3(cand: torch.Tensor, seen: torch.Tensor):
 
 def msbfs_propagate_planes_ref(frontier: torch.Tensor, seen: torch.Tensor,
                                src: torch.Tensor, tgt: torch.Tensor,
-                               op: str = "or"):
+                               op: str = "or", valid=None, n_edges=None):
     """Plain version of ``msbfs_propagate_planes`` (kernel K1).
 
-    Same padded-input contract as the kernel (the ops wrapper appends the
-    trash row).  Returns (new, seen_out, count int32[1, 1])."""
+    A slot is dropped where src or tgt lies outside ``[0, n_rows)`` (no
+    wrapping), where ``valid`` (bool[m], optional) is False, or at and
+    after ``n_edges`` (optional int or one-element tensor).  With a trash
+    row that dropped slots point at (the older contract) the result is the
+    same.  Returns (new, seen_out, count int32[1, 1])."""
     _check_op(op)
-    msg = frontier[src.to(torch.int64)]
-    cand = scatter_combine(torch.zeros_like(frontier), tgt, msg, op)
+    n, m = frontier.shape[0], src.shape[0]
+    s64, t64 = src.to(torch.int64), tgt.to(torch.int64)
+    ok = (s64 >= 0) & (s64 < n) & (t64 >= 0) & (t64 < n)
+    if valid is not None:
+        ok &= valid
+    if n_edges is not None:
+        ok &= torch.arange(m, device=src.device) < n_edges
+    msg = torch.where(ok[:, None], frontier[s64.clamp(0, max(n - 1, 0))], 0) \
+        if n else frontier.new_zeros((m, frontier.shape[1]))
+    cand = scatter_combine(torch.zeros_like(frontier), torch.where(ok, t64, n),
+                           msg, op)
     nf, vout, cnt = _p3(cand, seen)
     return nf, vout, cnt.reshape(1, 1)
 

@@ -62,6 +62,109 @@ def test_whole_array_kernel(dev, n_rows, nw, m, op):
     torch.cuda.synchronize()
 
 
+K1_CASES = ("valid holes", "n_edges 0", "n_edges inside", "n_edges = m",
+            "n_edges beyond m", "out of range", "fewer slots than threads")
+# K1's launch variants: (plan, warp aggregation, L2 window)
+K1_VARIANTS = ((kmod.K1_PLAN, kmod.K1_AGG, 0), (kmod.PLAN_ONE, 0, 0),
+               (kmod.PLAN_TWO, 1, 0), (kmod.PLAN_THREE, 1, 0),
+               (kmod.PLAN_L2, 1, 1))
+
+
+def _k1_case(name, nw, seed, dev):
+    """(frontier, seen, src, tgt, valid, n_edges) on the card, n = 41."""
+    rng = np.random.default_rng(seed)
+    n, m = 41, 300
+    if name == "fewer slots than threads":
+        m = 5
+    f = _words((n, nw), seed)
+    f[rng.random(n) < 0.3] = 0
+    s = _words((n, nw), seed + 1)
+    src = rng.integers(0, n, m)
+    tgt = rng.integers(0, n, m)
+    tgt[:40] = tgt[0]                         # colliding targets
+    valid = np.ones(m, bool)
+    n_edges = m
+    if name == "valid holes":
+        valid = rng.random(m) < 0.6
+    elif name == "n_edges 0":
+        n_edges = 0
+    elif name == "n_edges inside":
+        n_edges = 137
+    elif name == "n_edges beyond m":
+        n_edges = m + 50
+    elif name == "out of range":
+        src[::7] = rng.integers(-3, 0, src[::7].size)
+        tgt[3::11] = n + rng.integers(0, 3, tgt[3::11].size)
+        tgt[5::13] = -1
+        valid = rng.random(m) < 0.9
+        n_edges = 251
+    return (planes_from_numpy(f, dev), planes_from_numpy(s, dev),
+            _i(src, dev), _i(tgt, dev), torch.from_numpy(valid).to(dev),
+            torch.tensor(n_edges, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["or", "max"])
+@pytest.mark.parametrize("nw", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("case", K1_CASES)
+def test_whole_array_kernel_new_form(dev, case, nw, op):
+    """K1 on the edge list as it stands (valid, n_edges on the card)
+    against its plain version, through the wrapper and every launch
+    variant of its C launch function; ``ops.msbfs_propagate(tile_rows=0)``
+    too.  The grid always has far more threads than slots."""
+    f, s, src, tgt, valid, ne = _k1_case(case, nw, nw * 31 + len(case), dev)
+    want = ref.msbfs_propagate_planes_ref(f, s, src, tgt, op, valid, ne)
+    kmod.reset_launches()
+    _same(kmod.msbfs_propagate_planes(f, s, src, tgt, op, valid, ne), want)
+    assert kmod.LAUNCHES["msbfs_propagate_planes"] == 1
+    got = ops.msbfs_propagate(f, s, src, tgt, valid, op=op, tile_rows=0,
+                              n_edges=ne)
+    _same(got, (want[0], want[1], want[2][0, 0]))
+    new, seen_out = torch.empty_like(f), torch.empty_like(s)
+    cnt = torch.empty((1, 1), dtype=torch.int32, device=dev)
+    args = kmod.whole_launch_args(f, s, src, tgt, valid, ne, new, seen_out,
+                                  cnt, op)
+    lib = kmod._lib()
+    for plan, agg, l2 in K1_VARIANTS:
+        new.fill_(-1)
+        cnt.fill_(-1)
+        assert lib.msbfs_propagate_planes_launch(
+            *args, plan, agg, l2, torch.cuda.current_stream(dev).cuda_stream
+        ) == 0
+        _same((new, seen_out, cnt), want)
+    assert lib.msbfs_propagate_l2_release() == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_whole_array_kernel_reads_no_slot_past_n_edges(dev):
+    """Slots at and after n_edges hold indices far out of any array; the
+    kernel must not read them (a read would fault or count)."""
+    f, s, src, tgt, valid, _ = _k1_case("valid holes", 2, 5, dev)
+    src[200:] = 1 << 30
+    tgt[200:] = 1 << 30
+    valid[200:] = True
+    ne = torch.tensor(200, dtype=torch.int32, device=dev)
+    want = ref.msbfs_propagate_planes_ref(f, s, src[:200], tgt[:200], "or",
+                                          valid[:200])
+    _same(kmod.msbfs_propagate_planes(f, s, src, tgt, "or", valid, ne), want)
+    _same(kmod.msbfs_propagate_planes(f, s, src, tgt, "or", valid, 200), want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_whole_array_kernel_refuses_bad_arguments(dev):
+    f, s, src, tgt, valid, ne = _k1_case("valid holes", 2, 9, dev)
+    with pytest.raises(ValueError):
+        kmod.msbfs_propagate_planes(f, s, src, tgt, "or", valid[:-1], ne)
+    with pytest.raises(ValueError):
+        kmod.msbfs_propagate_planes(f, s, src, tgt, "or", valid,
+                                    ne.to(torch.int64))
+    with pytest.raises(TypeError):
+        kmod.msbfs_propagate_planes(f, s, src, tgt, "or", valid.to(
+            torch.int32), ne)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", ["or", "max"])
 @pytest.mark.parametrize("n", [TILE + 1, 5 * TILE])
@@ -221,6 +324,36 @@ def test_bitmap_update_kernel(dev, w):
         cut = (args[0][1:].contiguous(), args[1][1:].contiguous())
         _same(kbu.bitmap_update(args[0][1:], args[1][1:]),
               ref.bitmap_update_ref(*cut))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 129, 32768, 1 << 21])
+def test_bitmap_update_kernel_out_buffers(dev, w):
+    """K4 into out= buffers, three calls in a row on changing inputs (the
+    kernel resets its arrival counter), at one block and at many; one CTA
+    of 1024 threads gives the same."""
+    o = (torch.empty(w, dtype=torch.int32, device=dev),
+         torch.empty(w, dtype=torch.int32, device=dev),
+         torch.empty((1, 1), dtype=torch.int32, device=dev))
+    for k in range(3):
+        c = planes_from_numpy(_words((w,), w + k), dev)
+        v = planes_from_numpy(_words((w,), w + k + 7), dev)
+        o[2].fill_(-1)
+        got = kbu.bitmap_update(c, v, out=o)
+        assert all(a is b for a, b in zip(got, o))
+        _same(got, ref.bitmap_update_ref(c, v))
+    o[2].fill_(-1)
+    assert kbu._lib().bitmap_update_launch(
+        c.data_ptr(), v.data_ptr(), o[0].data_ptr(), o[1].data_ptr(),
+        o[2].data_ptr(), kbu.scratch_for(dev).data_ptr(), w, 1, 1024,
+        torch.cuda.current_stream(dev).cuda_stream) == 0
+    _same(o, ref.bitmap_update_ref(c, v))
+    assert int(kbu.scratch_for(dev)[0]) == 0
+    with pytest.raises(ValueError):
+        kbu.bitmap_update(c, v, out=(c, o[1], o[2]))
+    with pytest.raises(ValueError):
+        kbu.bitmap_update(c, v, out=(o[0], o[0], o[2]))
     torch.cuda.synchronize()
 
 
