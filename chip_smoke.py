@@ -15,22 +15,22 @@ them.  Phases, each failing the run on any error:
   (c) kernels against their plain versions ON THE CARD, bit-exact: the
       propagate kernels K1/K2 (both combine ops; K1 in its trash-row form
       and on the edge list as it stands with valid and n_edges none / 0 /
-      inside / m / beyond m, every launch variant at nw 1, 2, 3, 4, 8; K2
+      inside / m / beyond m, every aggregation mode at nw 1, 2, 3, 4, 8; K2
       given its run heads) on the adversarial cases of the kernel test
       suites, then on every level of a real traversal of --graph at
       --batch roots and at 256 roots: K1 timed as the engine calls it
       (``ops.msbfs_propagate(tile_rows=0)``, wrapper included) and alone
-      through its C launch function (launch plans and warp aggregation in
-      turns, an L2 window at 256 roots, its P3 and zero phases alone), its
-      bound counting the slots below n_edges and the first design's padded
-      bound beside it; K2's pad chunks logged per level, and K2 timed
-      alone at three load widths; the P3 kernels K3/K4 on adversarial word
-      counts, then on the inputs of every level of (h)'s 64 single-source
-      runs (K4 into out= buffers as the runner calls it, with fresh
-      outputs, and alone through its C launch function as launched, as one
-      CTA and as the first design's atomics) and of a bool-plane wave
-      (K3); kernel, plain and bound times of each, and the cost of K3's
-      two transposes;
+      (its C launch function's launches replayed from a CUDA graph: its
+      aggregation modes in turns, its P3 and zero launches alone), its
+      bound counting what the level's data makes it move, with a work
+      estimate and the first design's padded bound beside it; K2's pad
+      chunks logged per level, and K2 timed alone at three load widths;
+      the P3 kernels K3/K4 on adversarial word counts, then on the inputs
+      of every level of (h)'s 64 single-source runs (K4 into out= buffers
+      as the runner calls it, with fresh outputs, and alone by graph
+      replay as launched, as one CTA and as the first design's atomics)
+      and of a bool-plane wave (K3); kernel, plain and bound times of
+      each, and the cost of K3's two transposes;
   (d) the serving path: ``serve_bfs(graph, batch)`` (warm-up + timed
       wave, auto kernel plan) with launch counts reset just before; every
       plane is validated Graph500-style on the card and 4 roots against a
@@ -210,6 +210,28 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` with no host time between its launches:
+    ``reps`` calls captured in one CUDA graph, replayed once to warm up
+    and once timed (CUDA events), after one warm-up call.  ``fn`` must
+    launch on the current stream."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def reset_launches() -> None:
     for mod in MODULES:
         mod.reset_launches()
@@ -316,56 +338,43 @@ def check_k1(args, op, what, valid=None, n_edges=None) -> int:
     return assert_same(got, want, f"K1 {what} [{op}]")
 
 
-# K1's launch variants timed alone (plan, warp aggregation, L2 window);
-# the first is what the wrapper launches.  "l2" runs at WIDE_BATCH only.
-K1_VARIANTS = {
-    "kernel_only_ms": (kmod.K1_PLAN, kmod.K1_AGG, 0),
-    "no_agg_ms": (kmod.K1_PLAN, 0, 0),
-    "two_launches_ms": (kmod.PLAN_TWO, kmod.K1_AGG, 0),
-    "three_launches_ms": (kmod.PLAN_THREE, kmod.K1_AGG, 0),
-    "l2_window_ms": (kmod.PLAN_L2, kmod.K1_AGG, 1),
-}
+# K1's scatter aggregation modes timed alone; the first is the wrapper's.
+K1_VARIANTS = {"kernel_only_ms": kmod.K1_AGG, "agg_every_warp_ms": 1,
+               "no_agg_ms": 0}
 
 
-def k1_alone(frontier, seen, src, tgt, valid, n_edges, wide: bool,
-             reps: int) -> dict:
-    """K1 alone: outputs made once, the C launch function called back to
-    back (no wrapper, no allocation; the launch zeroes what it needs).
-    Every variant of ``K1_VARIANTS`` in turns, forward then back, each
-    giving the first one's outputs; then its P3 phase and its zero phase
-    alone.  Returns the means, the largest spread of a variant's two turns
+def k1_alone(frontier, seen, src, tgt, valid, n_edges, reps: int) -> dict:
+    """K1 alone: outputs made once, its C launch function's three launches
+    replayed from a CUDA graph (device time, :func:`graph_ms`) for every
+    aggregation mode of ``K1_VARIANTS`` in turns, forward then back, each
+    giving the first one's outputs; then its P3 launch and its zero launch
+    alone.  Returns the means, the largest spread of a mode's two turns
     over its mean, p3_ms and zero_ms."""
     lib = kmod._lib()
     new, seen_out = torch.empty_like(seen), torch.empty_like(seen)
     cnt = torch.empty((1, 1), dtype=torch.int32, device=seen.device)
     args = kmod.whole_launch_args(frontier, seen, src, tgt, valid, n_edges,
                                   new, seen_out, cnt, "or")
-    stream = _build.stream_ptr(seen.device)
-    variants = {k: v for k, v in K1_VARIANTS.items()
-                if wide or k != "l2_window_ms"}
 
-    def run(plan, agg, l2):
+    def run(agg, phases=kmod.PHASES_ALL):
         _build.raise_on_error(lib.msbfs_propagate_planes_launch(
-            *args, plan, agg, l2, stream), f"K1 plan {plan:#x} agg {agg} "
-            f"l2 {l2}")
+            *args, phases, agg, _build.stream_ptr(seen.device)),
+            f"K1 agg {agg} phases {phases}")
 
     want = None
-    for name, v in variants.items():
-        run(*v)
+    for name, agg in K1_VARIANTS.items():
+        run(agg)
         got = (new.clone(), seen_out.clone(), cnt.clone())
         want = want or got
         assert_same(got, want, f"K1 variant {name}")
-    t = {name: [] for name in variants}
-    for name in [*variants, *reversed(variants)]:
-        t[name].append(time_ms(lambda: run(*variants[name]), reps))
-    if wide:
-        _build.raise_on_error(lib.msbfs_propagate_l2_release(),
-                              "K1 L2 release")
+    t = {name: [] for name in K1_VARIANTS}
+    for name in [*K1_VARIANTS, *reversed(K1_VARIANTS)]:
+        t[name].append(graph_ms(lambda: run(K1_VARIANTS[name]), reps))
     out = {name: float(np.mean(v)) for name, v in t.items()}
     out["turn_spread"] = max(abs(v[0] - v[1]) / np.mean(v)
                              for v in t.values())
-    out["p3_ms"] = time_ms(lambda: run(kmod.PHASE_P3, kmod.K1_AGG, 0), reps)
-    out["zero_ms"] = time_ms(lambda: run(0x1, kmod.K1_AGG, 0), reps)
+    out["p3_ms"] = graph_ms(lambda: run(kmod.K1_AGG, 0x4), reps)
+    out["zero_ms"] = graph_ms(lambda: run(kmod.K1_AGG, 0x1), reps)
     return out
 
 
@@ -483,7 +492,7 @@ def phase_small(dev) -> int:
             assert_same(got, want, f"ops msgs form {name} [{op}]")
     if not bit31:
         raise AssertionError("no small case had a word with bit 31 set")
-    # every K1 launch variant gives the same words at every nw it
+    # every K1 aggregation mode gives the same words at every nw it
     # specialises (1, 2, 4, 8) and one it does not (3), a grid far larger
     # than the slots included
     for nw in (1, 2, 3, 4, 8):
@@ -491,11 +500,11 @@ def phase_small(dev) -> int:
         f = f[:, :1].repeat(1, nw) ^ torch.arange(nw, dtype=torch.int32,
                                                  device=dev)
         s = s[:, :1].repeat(1, nw)
-        k1_alone(f, s, src, tgt, valid, None, True, 1)
+        k1_alone(f, s, src, tgt, valid, None, 1)
     log(f"(c) small cases: {len(cases)} cases x 2 ops, K1 (the trash-row "
         "form, and valid with n_edges none / 0 / m/3 / m / m+7) + K2 + the "
-        "three ops paths bit-exact; K1's launch variants equal at nw 1, 2, "
-        "3, 4, 8")
+        "three ops paths bit-exact; K1's aggregation modes equal at nw 1, "
+        "2, 3, 4, 8")
     return err
 
 
@@ -529,27 +538,33 @@ def bound(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
                                 else "bytes")
 
 
-def k1_bytes(frontier, src, tgt, valid, n_edges) -> tuple[int, int, dict]:
-    """K1's bound in bytes, counting the work this level needs: the src,
-    tgt and valid bytes of each slot below n_edges, the nw frontier words
-    of each real edge, a read-modify-write of the candidate words of each
-    real edge whose message is not zero, four plane arrays (P3) plus the
-    accumulator's zeroing, and the count.  Also the padded bound of the
-    first design (its whole padded edge list and four plane arrays with
-    the trash row), and the slot counts."""
+def k1_bytes(frontier, src, tgt, valid, n_edges) -> tuple[int, dict]:
+    """K1's bound in bytes: what this level's data makes it move, each
+    input read once and each output written once.  The src and valid bytes
+    of each slot below n_edges, the tgt of each real edge whose message is
+    not zero, each distinct frontier row the real edges read, seen, the
+    two outputs new and seen_out, and the count.  Also, for the log: a
+    work estimate that counts the nw frontier words of every real edge, a
+    read-modify-write of the candidate words of every non-zero message
+    and the accumulator's zeroing, as if nothing stayed in L2 or merged in
+    a warp (it exceeds K1's time at B = 256); the first design's padded
+    bound (its whole padded edge list and four plane arrays with the
+    trash row); and the slot counts."""
     n, nw = frontier.shape
     m = int(src.shape[0])
     slots = m if n_edges is None else min(max(int(n_edges), 0), m)
     ok = ops._edge_ok(valid, src, tgt, n)[:slots]
-    msg = frontier[src[:slots].to(torch.int64).clamp(0, n - 1)]
-    real = int(ok.sum())
-    live = int((ok & (msg != 0).any(1)).sum())
+    s64 = src[:slots].to(torch.int64).clamp(0, n - 1)
+    live_ok = ok & (frontier[s64] != 0).any(1)
+    real, live = int(ok.sum()), int(live_ok.sum())
+    rows = int(torch.unique(s64[ok]).numel())
     words = n * nw
-    b = slots * 9 + real * nw * 4 + live * nw * 8 + 5 * words * 4 + 4
-    padded = -(-m // ops._auto_block_edges(m, nw)) * \
-        ops._auto_block_edges(m, nw)
-    old = 4 * (n + 1) * nw * 4 + 2 * padded * 4 + 4
-    return b, old, dict(slots=slots, real=real, live=live)
+    b = slots * 5 + live * 4 + rows * nw * 4 + 3 * words * 4 + 4
+    work = (slots * 9 + real * nw * 4 + live * nw * 8 + 5 * words * 4 + 4)
+    be = ops._auto_block_edges(m, nw)
+    padded = 4 * (n + 1) * nw * 4 + 2 * (-(-m // be) * be) * 4 + 4
+    return b, dict(slots=slots, real=real, live=live, rows=rows,
+                   work_ms=bound(work)[0], padded_bound_ms=bound(padded)[0])
 
 
 def phase_real(g, deg: np.ndarray, graph: str, batch: int, seed: int
@@ -567,7 +582,6 @@ def phase_real(g, deg: np.ndarray, graph: str, batch: int, seed: int
     roots = np.random.default_rng(seed).choice(np.flatnonzero(deg > 0),
                                                batch, replace=False)
     calls = capture_levels(g, roots)
-    wide = batch == WIDE_BATCH
     per = {name: [] for name in ("msbfs_propagate_planes",
                                  "msbfs_propagate_planes_tiled")}
     for lvl, (frontier, seen, src, tgt, valid, ne) in enumerate(calls):
@@ -599,16 +613,17 @@ def phase_real(g, deg: np.ndarray, graph: str, batch: int, seed: int
         count_ms = time_ms(lambda: ops._key_starts(keys, t_), 5)
         feed_ms = time_ms(lambda: tiled_inputs(frontier, seen, src, tgt,
                                                valid, tr, be), 2)
-        b1, b1_old, sl = k1_bytes(frontier, src, tgt, valid, ne)
+        b1, sl = k1_bytes(frontier, src, tgt, valid, ne)
         b2 = sl["real"] * nw * 4 + live2 * 4 + 3 * s2.numel() * 4 + 4
         r1 = dict(bytes=b1, bound_ms=bound(b1)[0], max_abs_err=e1,
-                  padded_bound_ms=bound(b1_old)[0],
+                  work_ms=sl["work_ms"],
+                  padded_bound_ms=sl["padded_bound_ms"],
                   ms=time_ms(lambda: ops.msbfs_propagate(
                       frontier, seen, src, tgt, valid, tile_rows=0,
                       n_edges=ne), 5),
                   plain_ms=time_ms(lambda: ref.msbfs_propagate_planes_ref(
                       frontier, seen, src, tgt, "or", valid, ne), 1),
-                  **k1_alone(frontier, seen, src, tgt, valid, ne, wide, 20))
+                  **k1_alone(frontier, seen, src, tgt, valid, ne, 20))
         r2 = dict(bytes=b2, bound_ms=bound(b2)[0], max_abs_err=e2,
                   count_ms=count_ms, feed_ms=feed_ms,
                   **k2_alone(k2, tr, be, 20),
@@ -625,11 +640,13 @@ def phase_real(g, deg: np.ndarray, graph: str, batch: int, seed: int
                          if k in r1)
         log(f"(c) B={batch} level {lvl}: budget={m} n_edges={sl['slots']} "
             f"real edges={sl['real']} of them non-zero messages="
-            f"{sl['live']} frontier rows={nz} | K1 {r1['ms']:.4f} ms as the "
-            f"engine calls it (bound {r1['bound_ms']:.4f}, padded bound "
-            f"{r1['padded_bound_ms']:.4f}, plain {r1['plain_ms']:.3f}); "
-            f"alone {k1v} (turn spread {r1['turn_spread']:.3f}); its P3 "
-            f"phase alone {r1['p3_ms']:.4f}, zero phase {r1['zero_ms']:.4f} "
+            f"{sl['live']} distinct source rows={sl['rows']} frontier rows="
+            f"{nz} | K1 {r1['ms']:.4f} ms as the "
+            f"engine calls it (bound {r1['bound_ms']:.4f}, work estimate "
+            f"{r1['work_ms']:.4f}, padded bound {r1['padded_bound_ms']:.4f}, "
+            f"plain {r1['plain_ms']:.3f}); alone (graph replay) {k1v} (turn "
+            f"spread {r1['turn_spread']:.3f}); its P3 launch alone "
+            f"{r1['p3_ms']:.4f}, zero launch {r1['zero_ms']:.4f} "
             f"| K2 block_edges={be} tile_rows={tr} chunks={ct.shape[0]} pad "
             f"chunks={pad}: {r2['ms']:.4f} ms (bound {r2['bound_ms']:.4f}, "
             f"plain {r2['plain_ms']:.3f}; alone {r2['kernel_only_ms']:.4f} / "
@@ -653,11 +670,13 @@ def phase_real(g, deg: np.ndarray, graph: str, batch: int, seed: int
                      f"zero_fill_ms={r['zero_ms']:.4f} feed_ms="
                      f"{r['feed_ms']:.4f} bucket_count_ms={r['count_ms']:.4f}")
         else:
-            extra = (" (as the engine calls it, wrapper included) alone: " +
+            extra = (" (as the engine calls it, wrapper included) alone "
+                     "(graph replay): " +
                      " ".join(f"{k}={r[k]:.4f}" for k in K1_VARIANTS
                               if k in r) +
-                     f" turn_spread_mean={r['turn_spread']:.4f} p3_phase_ms="
-                     f"{r['p3_ms']:.4f} zero_phase_ms={r['zero_ms']:.4f} "
+                     f" turn_spread_mean={r['turn_spread']:.4f} p3_launch_ms="
+                     f"{r['p3_ms']:.4f} zero_launch_ms={r['zero_ms']:.4f} "
+                     f"work_estimate_ms={r['work_ms']:.4f} "
                      f"padded_bound_ms={r['padded_bound_ms']:.4f}")
         log(f"(c) {name}: mean over {len(rows)} levels of one {graph} "
             f"B={batch} wave, both ops bit-exact on each: kernel_ms="
@@ -750,36 +769,40 @@ def capture_p3(g, keys: np.ndarray, roots: np.ndarray) -> tuple[list, list]:
 
 
 def k4_alone(c: torch.Tensor, v: torch.Tensor, reps: int) -> dict:
-    """K4 alone: outputs made once, the C launch function called back to
-    back (no wrapper, no allocation), in turns forward then back: as the
-    wrapper launches it (grid cap K4_MAX_GRID, K4_THREADS a block: the
-    last CTA sums the partials), as one CTA of 1024 threads, and as the
-    first design ran (K3's launch at one plane: an atomic a block into a
-    count zeroed once).  Each gives the same outputs.  Returns the means
-    and the largest spread of a variant's two turns over its mean."""
+    """K4 alone: outputs made once, the C launch function's launch replayed
+    from a CUDA graph (device time, :func:`graph_ms`), in turns forward
+    then back: as the wrapper launches it (the last CTA sums the
+    partials), as one CTA of 1024 threads, and as the first design ran
+    (K3's launch at one plane: an atomic a block into a count zeroed
+    once).  Each gives the same outputs.  Returns the means and the
+    largest spread of a variant's two turns over its mean."""
     lib = kbu._lib()
     new, vout = torch.empty_like(c), torch.empty_like(v)
     cnt = torch.zeros((1, 1), dtype=torch.int32, device=c.device)
     scratch = kbu.scratch_for(c.device).data_ptr()
     ptrs = (c.data_ptr(), v.data_ptr(), new.data_ptr(), vout.data_ptr(),
             cnt.data_ptr())
-    w, stream = int(c.numel()), _build.stream_ptr(c.device)
+    w = int(c.numel())
     variants = {
-        "kernel_only_ms": lambda: lib.bitmap_update_launch(
-            *ptrs, scratch, w, kbu.K4_MAX_GRID, kbu.K4_THREADS, stream),
-        "one_cta_ms": lambda: lib.bitmap_update_launch(
-            *ptrs, scratch, w, 1, 1024, stream),
-        "atomic_ms": lambda: lib.bitmap_update_batch_launch(
-            *ptrs, 1, w, stream)}
+        "kernel_only_ms": lambda st: lib.bitmap_update_launch(
+            *ptrs, scratch, w, kbu.K4_MAX_GRID, kbu.K4_THREADS, st),
+        "one_cta_ms": lambda st: lib.bitmap_update_launch(
+            *ptrs, scratch, w, 1, 1024, st),
+        "atomic_ms": lambda st: lib.bitmap_update_batch_launch(
+            *ptrs, 1, w, st)}
+
+    def run(name):
+        _build.raise_on_error(variants[name](_build.stream_ptr(c.device)),
+                              f"K4 {name}")
+
     want = ref.bitmap_update_ref(c, v)
-    for name, fn in variants.items():
+    for name in variants:
         cnt.zero_()
-        _build.raise_on_error(fn(), f"K4 {name}")
+        run(name)
         assert_same((new, vout, cnt), want, f"K4 alone {name}")
     t = {name: [] for name in variants}
     for name in [*variants, *reversed(variants)]:
-        t[name].append(time_ms(lambda: _build.raise_on_error(
-            variants[name](), "bitmap_update"), reps))
+        t[name].append(graph_ms(lambda: run(name), reps))
     out = {name: float(np.mean(x)) for name, x in t.items()}
     out["turn_spread"] = max(abs(x[0] - x[1]) / np.mean(x)
                              for x in t.values())
@@ -835,8 +858,8 @@ def phase_p3_real(g, keys: np.ndarray, roots: np.ndarray) -> dict:
         if name == "bitmap_update":
             log(f"(c) bitmap_update: wrapper into out= buffers (as the runner "
                 f"calls it) {r['ms']:.5f} ms, with fresh outputs "
-                f"{r['fresh_ms']:.5f}; alone (C launch function back to "
-                f"back): as launched {r['kernel_only_ms']:.5f}, one CTA of "
+                f"{r['fresh_ms']:.5f}; alone (C launch function, graph "
+                f"replay): as launched {r['kernel_only_ms']:.5f}, one CTA of "
                 f"1024 threads {r['one_cta_ms']:.5f}, the first design (an "
                 f"atomic a block, count zeroed once) {r['atomic_ms']:.5f} "
                 f"(turn spread mean {r['turn_spread']:.4f}; bound "

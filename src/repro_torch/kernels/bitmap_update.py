@@ -58,14 +58,17 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def scratch_for(dev: torch.device) -> torch.Tensor:
-    """K4's scratch on the current stream of ``dev``: zeroed once, left
-    zero by every launch, so launches on one stream share it."""
-    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    buf = _scratch.get(key)
+def scratch_for(dev: torch.device, stream: int | None = None
+                ) -> torch.Tensor:
+    """K4's scratch for one stream of ``dev`` (its handle; None: the
+    current stream): zeroed once, left zero by every launch, so the
+    launches of one stream share it."""
+    if stream is None:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+    buf = _scratch.get((dev.index, stream))
     if buf is None:
-        buf = _scratch[key] = torch.zeros(_SCRATCH_WORDS, dtype=torch.int32,
-                                          device=dev)
+        buf = _scratch[(dev.index, stream)] = torch.zeros(
+            _SCRATCH_WORDS, dtype=torch.int32, device=dev)
     return buf
 
 
@@ -82,32 +85,32 @@ def _checked_device(cand: torch.Tensor, visited: torch.Tensor,
     return dev
 
 
-def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
-    a0, b0 = a.data_ptr(), b.data_ptr()
-    return (a.device == b.device and a.numel() > 0 and b.numel() > 0
-            and a0 < b0 + b.numel() * b.element_size()
-            and b0 < a0 + a.numel() * a.element_size())
-
-
-def _check_out(cand: torch.Tensor, visited: torch.Tensor, out) -> None:
+def _check_out(cand: torch.Tensor, visited: torch.Tensor, out) -> tuple:
     """``out`` = (new, visited_out, count): int32, contiguous, on cand's
-    device, new and visited_out shaped like cand, count [1, 1]; none may
-    overlap an input or another output."""
+    device, new and visited_out shaped like cand, count [1, 1], and no
+    output overlapping an input or another output.  Returns the five
+    data pointers (cand, visited, new, visited_out, count)."""
     if len(out) != 3:
         raise ValueError(f"out must be (new, visited_out, count), got "
                          f"{len(out)} tensors")
     for name, t, shape in zip(("new", "visited_out", "count"), out,
                               (cand.shape, cand.shape, (1, 1))):
-        check_arg(f"out {name}", t, torch.int32, len(shape), cand.device)
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"out {name} must be {tuple(shape)}, got "
-                             f"{tuple(t.shape)}")
-    ts = (cand, visited, *out)
-    for i in range(2, 5):
-        for j in range(i):
-            if _overlap(ts[i], ts[j]):
-                raise ValueError("out buffers may not overlap the inputs "
-                                 "or each other")
+        if (t.dtype != torch.int32 or t.shape != shape
+                or t.device != cand.device or not t.is_contiguous()):
+            raise ValueError(f"out {name} must be a contiguous int32 "
+                             f"{tuple(shape)} on {cand.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    ptrs = (cand.data_ptr(), visited.data_ptr(),
+            *(t.data_ptr() for t in out))
+    nbytes = 4 * cand.numel()
+    ends = [p + n for p, n in zip(ptrs, (nbytes,) * 4 + (4,))]
+    if nbytes:
+        for i in range(2, 5):               # each output against the rest
+            for j in range(i):
+                if ptrs[i] < ends[j] and ptrs[j] < ends[i]:
+                    raise ValueError("out buffers may not overlap the "
+                                     "inputs or each other")
+    return ptrs
 
 
 def bitmap_update(cand: torch.Tensor, visited: torch.Tensor, out=None):
@@ -117,9 +120,9 @@ def bitmap_update(cand: torch.Tensor, visited: torch.Tensor, out=None):
     visited_out, count int32[1, 1]) to write, none overlapping another or
     an input.  Returns (new, visited_out, count int32[1, 1]): ``out`` when
     given, else fresh tensors."""
-    if out is not None:
-        _check_out(cand, visited, out)
     if cand.device.type == "cpu":
+        if out is not None:
+            _check_out(cand, visited, out)
         res = ref.bitmap_update_ref(cand, visited)
         if out is None:
             return res
@@ -130,17 +133,18 @@ def bitmap_update(cand: torch.Tensor, visited: torch.Tensor, out=None):
     if out is None:
         out = (torch.empty_like(cand), torch.empty_like(visited),
                torch.empty((1, 1), dtype=torch.int32, device=dev))
-    new, vout, cnt = out
-    if cand.numel():
-        err = _lib().bitmap_update_launch(
-            cand.data_ptr(), visited.data_ptr(), new.data_ptr(),
-            vout.data_ptr(), cnt.data_ptr(), scratch_for(dev).data_ptr(),
-            int(cand.numel()), K4_MAX_GRID, K4_THREADS, stream_ptr(dev))
-        raise_on_error(err, "bitmap_update")
-        LAUNCHES["bitmap_update"] += 1
-    else:
-        cnt.zero_()
-    return new, vout, cnt
+    ptrs = _check_out(cand, visited, out)
+    w = cand.numel()
+    if w == 0:
+        out[2].zero_()
+        return tuple(out)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().bitmap_update_launch(
+        *ptrs, scratch_for(dev, stream).data_ptr(), w, K4_MAX_GRID,
+        K4_THREADS, stream)
+    raise_on_error(err, "bitmap_update")
+    LAUNCHES["bitmap_update"] += 1
+    return tuple(out)
 
 
 def bitmap_update_batch(cand: torch.Tensor, visited: torch.Tensor):

@@ -91,15 +91,12 @@
 // * 32 (every bit discovered at once) must stay below 2^31: rmat20 at
 // B=256 is 2^28.  Indices into the message stream are 64-bit.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <mutex>
 
 namespace {
-
-namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr int kOpOr = 0;
@@ -137,12 +134,6 @@ __device__ __forceinline__ int block_sum(int v) {
 // K1
 // ---------------------------------------------------------------------------
 
-// K1's phases; a launch runs a nonempty subset in this order, with a grid
-// barrier between two of them (so a launch of more than one is cooperative).
-constexpr int kPhaseZero = 1;      // acc = 0, count = 0
-constexpr int kPhaseScatter = 2;   // acc[tgt] (+)= frontier[src]
-constexpr int kPhaseP3 = 4;        // new = acc & ~seen (in acc), seen_out, count
-
 struct WholeArgs {
   const unsigned int* frontier;   // [n_rows, nw]
   const unsigned int* seen;       // [n_rows, nw]
@@ -179,32 +170,57 @@ __device__ __forceinline__ void load_row(const unsigned int* p,
   }
 }
 
-// One candidate word's combine.  AGG: the lanes of `grp` (one target row)
-// reduce their words in the warp (OR, or unsigned MAX) and the group's
-// lowest lane issues the one atomic.
-template <int OP, bool AGG>
-__device__ __forceinline__ void emit(unsigned int* p, unsigned int v,
+// One candidate word's combine.  With `agg` (warp-uniform) the lanes of
+// `grp` (one target row) reduce their words in the warp (OR, or unsigned
+// MAX) and the group's lowest lane issues the one atomic.
+template <int OP>
+__device__ __forceinline__ void emit(unsigned int* p, unsigned int v, bool agg,
                                      unsigned int grp, bool leader) {
-  if constexpr (AGG) {
+  if (agg) {
     v = OP == kOpOr ? __reduce_or_sync(grp, v) : __reduce_max_sync(grp, v);
     if (!leader) return;
   }
   if (v) combine<OP>(p, v);
 }
 
-// acc[tgt[s]] (+)= frontier[src[s]] over the slots s < `slots`, dropping a
-// slot whose valid byte is 0, whose src or tgt lies outside [0, n_rows) or
-// whose message is zero.  One slot a thread, kUnroll in flight; src (and
-// valid) read once a slot, tgt only for a non-zero message.  NW > 0: the
-// row's words held in registers; NW == 0: any nw, scalar loads.  The loop
-// is warp-uniform, so every lane reaches the ballot of each slot group.
-template <int OP, int NW, bool AGG>
-__device__ __forceinline__ void whole_scatter(const WholeArgs& a,
-                                              long long slots) {
+// K1, launch 1: acc = 0 and the count = 0.
+__global__ void __launch_bounds__(kThreads)
+whole_zero_kernel(unsigned int* acc, int* count, long long words, int vec4) {
+  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kThreads;
+  if (vec4) {
+    uint4* z = reinterpret_cast<uint4*>(acc);
+    for (long long i = tid; i < words / 4; i += stride)
+      z[i] = make_uint4(0u, 0u, 0u, 0u);
+  } else {
+    for (long long i = tid; i < words; i += stride) acc[i] = 0u;
+  }
+  if (tid == 0) *count = 0;
+}
+
+// K1, launch 2: acc[tgt[s]] (+)= frontier[src[s]] over the slots s <
+// min(*n_edges, m), dropping a slot whose valid byte is 0, whose src or
+// tgt lies outside [0, n_rows) or whose message is zero.  One slot a
+// thread, kUnroll in flight; src (and valid) read once a slot, tgt only
+// for a non-zero message.  NW > 0: the row's words held in registers;
+// NW == 0: any nw, scalar loads.  AGG: 0 one atomic a non-zero word; 1
+// every warp aggregates (__match_any_sync on the target); 2 a warp
+// aggregates only where some live lane's target equals its left
+// neighbour's (a pull level's slots come grouped by child; a push level's
+// targets rarely repeat).  The loop is warp-uniform, so every lane reaches
+// each ballot.
+template <int OP, int NW, int AGG>
+__global__ void __launch_bounds__(kThreads)
+whole_scatter_kernel(WholeArgs a) {
   constexpr int HW = NW > 0 ? NW : 1;
   const int nw = NW > 0 ? NW : a.nw;
   const int lane = threadIdx.x & 31;
   const long long stride = (long long)gridDim.x * kThreads;
+  long long slots = a.m;
+  if (a.n_edges != nullptr) {
+    const long long n = *a.n_edges;
+    slots = n < 0 ? 0 : (n < slots ? n : slots);
+  }
   for (long long base = (long long)blockIdx.x * kThreads + (threadIdx.x - lane);
        base < slots; base += stride * kUnroll) {
     int row[kUnroll];
@@ -237,33 +253,39 @@ __device__ __forceinline__ void whole_scatter(const WholeArgs& a,
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const bool live = t[u] >= 0;
+      bool agg = false, leader = true;
       unsigned int grp = 0u;
-      bool leader = true;
-      if constexpr (AGG) {
+      if constexpr (AGG != 0) {
         const unsigned int act = __ballot_sync(0xffffffffu, live);
-        if (!live) continue;
-        grp = __match_any_sync(act, t[u]);
-        leader = lane == __ffs(grp) - 1;
-      } else {
-        if (!live) continue;
+        agg = act != 0u;
+        if constexpr (AGG == 2) {
+          const int left = __shfl_up_sync(0xffffffffu, t[u], 1);
+          agg = __ballot_sync(0xffffffffu, live && lane > 0 && left == t[u]) != 0u;
+        }
+        if (live && agg) {
+          grp = __match_any_sync(act, t[u]);
+          leader = lane == __ffs(grp) - 1;
+        }
       }
+      if (!live) continue;
       unsigned int* dst = a.acc + (long long)t[u] * nw;
       if constexpr (NW > 0) {
 #pragma unroll
-        for (int k = 0; k < NW; ++k) emit<OP, AGG>(dst + k, w[u][k], grp, leader);
+        for (int k = 0; k < NW; ++k) emit<OP>(dst + k, w[u][k], agg, grp, leader);
       } else {
         const unsigned int* f = a.frontier + (long long)row[u] * nw;
-        for (int k = 0; k < nw; ++k) emit<OP, AGG>(dst + k, __ldg(f + k), grp, leader);
+        for (int k = 0; k < nw; ++k) emit<OP>(dst + k, __ldg(f + k), agg, grp, leader);
       }
     }
   }
 }
 
-// P3 over the whole arrays, grid-stride: new = acc & ~seen written over acc
-// (read past L1: the scatter's atomics resolved in L2), seen_out = seen |
-// new.  Returns this thread's popcount.
-__device__ __forceinline__ int whole_p3(const WholeArgs& a, long long tid,
-                                        long long stride) {
+// K1, launch 3: P3 over the whole arrays, grid-stride: new = acc & ~seen
+// written over acc, seen_out = seen | new, one count atomic a block.
+__global__ void __launch_bounds__(kThreads)
+whole_p3_kernel(WholeArgs a) {
+  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kThreads;
   int local = 0;
   if (a.vec4) {
     const uint4* s4 = reinterpret_cast<const uint4*>(a.seen);
@@ -271,7 +293,7 @@ __device__ __forceinline__ int whole_p3(const WholeArgs& a, long long tid,
     uint4* o4 = reinterpret_cast<uint4*>(a.seen_out);
     for (long long i = tid; i < a.words / 4; i += stride) {
       const uint4 s = __ldcs(s4 + i);
-      const uint4 c = __ldcg(c4 + i);
+      const uint4 c = c4[i];
       const uint4 nf = make_uint4(c.x & ~s.x, c.y & ~s.y, c.z & ~s.z,
                                   c.w & ~s.w);
       c4[i] = nf;
@@ -281,46 +303,14 @@ __device__ __forceinline__ int whole_p3(const WholeArgs& a, long long tid,
   } else {
     for (long long i = tid; i < a.words; i += stride) {
       const unsigned int s = __ldcs(a.seen + i);
-      const unsigned int nf = __ldcg(a.acc + i) & ~s;
+      const unsigned int nf = a.acc[i] & ~s;
       a.acc[i] = nf;
       a.seen_out[i] = s | nf;
       local += __popc(nf);
     }
   }
-  return local;
-}
-
-// K1: the phases in `phases`, a grid barrier between two of them.  The slot
-// count is min(*n_edges, m) (m without n_edges), clamped at 0.
-template <int OP, int NW, bool AGG>
-__global__ void __launch_bounds__(kThreads)
-propagate_whole_kernel(WholeArgs a, int phases) {
-  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const long long stride = (long long)gridDim.x * kThreads;
-  if (phases & kPhaseZero) {
-    if (a.vec4) {
-      uint4* z = reinterpret_cast<uint4*>(a.acc);
-      for (long long i = tid; i < a.words / 4; i += stride)
-        z[i] = make_uint4(0u, 0u, 0u, 0u);
-    } else {
-      for (long long i = tid; i < a.words; i += stride) a.acc[i] = 0u;
-    }
-    if (tid == 0) *a.count = 0;
-    if (phases & (kPhaseScatter | kPhaseP3)) cg::this_grid().sync();
-  }
-  if (phases & kPhaseScatter) {
-    long long slots = a.m;
-    if (a.n_edges != nullptr) {
-      const long long n = *a.n_edges;
-      slots = n < 0 ? 0 : (n < slots ? n : slots);
-    }
-    whole_scatter<OP, NW, AGG>(a, slots);
-    if (phases & kPhaseP3) cg::this_grid().sync();
-  }
-  if (phases & kPhaseP3) {
-    const int total = block_sum(whole_p3(a, tid, stride));
-    if (threadIdx.x == 0 && total) atomicAdd(a.count, total);
-  }
+  const int total = block_sum(local);
+  if (threadIdx.x == 0 && total) atomicAdd(a.count, total);
 }
 
 // ---------------------------------------------------------------------------
@@ -577,10 +567,10 @@ cudaError_t sm_count(int* sms) {
   return cudaSuccess;
 }
 
-// The cooperative grid of one K1 instance, every CTA resident at once:
-// its occupancy at kThreads times the SM count, cached per device and
-// instance.
-template <int OP, int NW, bool AGG>
+// K1's grid: as many CTAs as the scatter instance keeps resident (its
+// occupancy at kThreads times the SM count), queried once per device and
+// instance; the zero and P3 launches take the same grid.
+template <int OP, int NW, int AGG>
 cudaError_t whole_grid(int* grid) {
   static int cached[kMaxDevices];
   static std::mutex lock;
@@ -594,97 +584,35 @@ cudaError_t whole_grid(int* grid) {
     err = sm_count(&sms);
     if (err != cudaSuccess) return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, propagate_whole_kernel<OP, NW, AGG>, kThreads, 0);
+        &per_sm, whole_scatter_kernel<OP, NW, AGG>, kThreads, 0);
     if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-    cached[dev] = sms * per_sm;
+    cached[dev] = sms * (per_sm < 1 ? 1 : per_sm);
   }
   *grid = cached[dev];
   return cudaSuccess;
 }
 
-// The persisting L2 set-aside an l2 launch took, per device (0: none).
-size_t set_aside[kMaxDevices];
-
-// An L2 access-policy window over the accumulator: persisting for a launch
-// that scatters, normal (which returns the lines to normal) for one that
-// does not.  The persisting set-aside is set to the card's maximum once.
-cudaError_t acc_window(const WholeArgs& a, bool persist,
-                       cudaAccessPolicyWindow* w) {
-  static std::mutex lock;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  int max_persist = 0, max_window = 0;
-  err = cudaDeviceGetAttribute(&max_persist,
-                               cudaDevAttrMaxPersistingL2CacheSize, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_window,
-                               cudaDevAttrMaxAccessPolicyWindowSize, dev);
-  if (err != cudaSuccess) return err;
-  {
-    std::lock_guard<std::mutex> hold(lock);
-    if (set_aside[dev] == 0) {
-      err = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize,
-                               (size_t)max_persist);
-      if (err != cudaSuccess) return err;
-      set_aside[dev] = (size_t)max_persist;
-    }
-  }
-  size_t bytes = (size_t)a.words * sizeof(unsigned int);
-  if (bytes > (size_t)max_window) bytes = (size_t)max_window;
-  w->base_ptr = a.acc;
-  w->num_bytes = bytes;
-  w->hitRatio = !persist || bytes <= set_aside[dev]
-                    ? 1.0f
-                    : (float)((double)set_aside[dev] / (double)bytes);
-  w->hitProp = persist ? cudaAccessPropertyPersisting : cudaAccessPropertyNormal;
-  w->missProp = cudaAccessPropertyStreaming;
-  return cudaSuccess;
-}
-
-// K1's launches.  `plan` lists each launch's phases, one hex digit a launch,
-// the lowest first: 0x7 is one cooperative launch, 0x61 a zero launch and
-// then a cooperative scatter + P3, 0x421 three plain launches.  A launch of
-// more than one phase is cooperative.  l2: an access-policy window on the
-// accumulator for every launch (P3 must then run alone, after the scatter).
-template <int OP, int NW, bool AGG>
-cudaError_t launch_whole(const WholeArgs& a, int plan, int l2,
-                         cudaStream_t st) {
+// K1's three launches, those whose bit is set in `phases` (1 zero, 2
+// scatter, 4 P3), in that order on one stream.
+template <int OP, int NW, int AGG>
+cudaError_t launch_whole(const WholeArgs& a, int phases, cudaStream_t st) {
   int grid = 0;
   cudaError_t err = whole_grid<OP, NW, AGG>(&grid);
   if (err != cudaSuccess) return err;
-  for (; plan; plan >>= 4) {
-    const int phases = plan & 0xf;
-    if (l2 && (phases & kPhaseP3) && phases != kPhaseP3)
-      return cudaErrorInvalidValue;
-    cudaLaunchAttribute attrs[2];
-    unsigned int n = 0;
-    if (phases & (phases - 1)) {
-      attrs[n].id = cudaLaunchAttributeCooperative;
-      attrs[n].val.cooperative = 1;
-      ++n;
-    }
-    if (l2) {
-      attrs[n].id = cudaLaunchAttributeAccessPolicyWindow;
-      err = acc_window(a, (phases & kPhaseScatter) != 0,
-                       &attrs[n].val.accessPolicyWindow);
-      if (err != cudaSuccess) return err;
-      ++n;
-    }
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned int)grid);
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = 0;
-    cfg.stream = st;
-    cfg.attrs = attrs;
-    cfg.numAttrs = n;
-    err = cudaLaunchKernelEx(&cfg, propagate_whole_kernel<OP, NW, AGG>, a,
-                             phases);
-    if (err != cudaSuccess) return err;
+  if (phases & 1) {
+    whole_zero_kernel<<<grid, kThreads, 0, st>>>(a.acc, a.count, a.words,
+                                                 a.vec4);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  return cudaSuccess;
+  if (phases & 2) {
+    whole_scatter_kernel<OP, NW, AGG><<<grid, kThreads, 0, st>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (phases & 4) {
+    whole_p3_kernel<<<grid, kThreads, 0, st>>>(a);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 }  // namespace
@@ -693,15 +621,16 @@ extern "C" {
 
 // K1.  frontier / seen / new_out / seen_out: [n_rows, nw] words; src / tgt:
 // int32[m]; valid: bool[m] or null; n_edges: a device int32 scalar or
-// null.  Nothing needs zeroing: the zero phase clears new_out (the
-// accumulator) and the count.  plan / agg / l2: see launch_whole (the
-// wrapper passes the chosen ones).
+// null.  Nothing needs zeroing: the first launch clears new_out (the
+// accumulator) and the count.  phases: the launches to run (7: all three;
+// a subset for timing one); agg: the scatter's aggregation mode (see
+// whole_scatter_kernel).
 int msbfs_propagate_planes_launch(const void* frontier, const void* seen,
                                   const void* src, const void* tgt,
                                   const void* valid, const void* n_edges,
                                   void* new_out, void* seen_out, void* count,
                                   long long m, int n_rows, int nw, int op,
-                                  int plan, int agg, int l2, void* stream) {
+                                  int phases, int agg, void* stream) {
   WholeArgs a;
   a.frontier = (const unsigned int*)frontier;
   a.seen = (const unsigned int*)seen;
@@ -722,32 +651,21 @@ int msbfs_propagate_planes_launch(const void* frontier, const void* seen,
   // rows held in registers where nw is 1, 2, 4 or 8 and the frontier is
   // aligned to the vector load; any other nw reads scalars
   const uintptr_t f = (uintptr_t)frontier;
-  const int row = nw == 1                          ? 1
-                  : nw == 2 && f % 8 == 0          ? 2
+  const int row = nw == 1                               ? 1
+                  : nw == 2 && f % 8 == 0               ? 2
                   : (nw == 4 || nw == 8) && f % 16 == 0 ? nw
-                                                   : 0;
+                                                        : 0;
   cudaStream_t st = (cudaStream_t)stream;
 #define K1_CASE(OPV, NWV)                                                   \
   if (op == OPV && row == NWV)                                              \
-    return (int)(agg ? launch_whole<OPV, NWV, true>(a, plan, l2, st)        \
-                     : launch_whole<OPV, NWV, false>(a, plan, l2, st));
+    return (int)(agg == 2   ? launch_whole<OPV, NWV, 2>(a, phases, st)     \
+                 : agg == 1 ? launch_whole<OPV, NWV, 1>(a, phases, st)     \
+                            : launch_whole<OPV, NWV, 0>(a, phases, st));
   K1_CASE(kOpOr, 0) K1_CASE(kOpOr, 1) K1_CASE(kOpOr, 2) K1_CASE(kOpOr, 4)
   K1_CASE(kOpOr, 8) K1_CASE(kOpMax, 0) K1_CASE(kOpMax, 1) K1_CASE(kOpMax, 2)
   K1_CASE(kOpMax, 4) K1_CASE(kOpMax, 8)
 #undef K1_CASE
   return (int)cudaErrorInvalidValue;
-}
-
-// Measurement only: drop the persisting L2 set-aside that an l2 launch
-// took, and return every persisting line to normal.
-int msbfs_propagate_l2_release(void) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < kMaxDevices) set_aside[dev] = 0;
-  err = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, 0);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaCtxResetPersistingL2Cache();
 }
 
 // K2.  run_first / work_off: int64[num_tiles] / int64[num_tiles + 1] (see

@@ -6,9 +6,9 @@ their bound and design):
 
 * ``msbfs_propagate_planes`` (K1) — whole plane arrays and the engine's
   edge list as it stands (src, tgt, the valid mask and the expansion's
-  edge total on the device); one persistent cooperative launch zeroes the
-  accumulator, scatter-combines ``frontier[src]`` into it one slot a
-  thread with warp-aggregated global atomics, then applies P3 + popcount.
+  edge total on the device); three launches zero the accumulator,
+  scatter-combine ``frontier[src]`` into it one slot a thread with
+  warp-aggregated global atomics, and apply P3 + popcount.
 * ``msbfs_propagate_planes_tiled`` (K2) — pre-gathered messages bucketed
   by target row tile; a persistent grid cuts the tiles' runs into equal
   slices, each tile's accumulator in shared memory, a tile split across
@@ -38,16 +38,11 @@ _OP_CODE = {"or": 0, "max": 1}
 _LIB = "msbfs_propagate"
 _bound = False
 
-# K1's launch plans (``csrc/msbfs_propagate.cu``, ``launch_whole``): each
-# hex digit one launch's phases (1 zero, 2 scatter, 4 P3), lowest first.
-PLAN_ONE = 0x7           # one cooperative launch, grid barriers between
-PLAN_TWO = 0x61          # a zero launch, then a cooperative scatter + P3
-PLAN_THREE = 0x421       # three plain launches
-PLAN_L2 = 0x43           # cooperative zero + scatter, then P3 alone
-PHASE_P3 = 0x4
-# what the wrapper launches: the plan, and warp-aggregated combines (1) or
-# one atomic a non-zero word (0)
-K1_PLAN, K1_AGG = PLAN_ONE, 1
+# K1's launches (``csrc/msbfs_propagate.cu``): bit 1 zero, 2 scatter, 4 P3
+PHASES_ALL = 0x7
+# the scatter's combines: 0 one atomic a non-zero word, 1 warp-aggregated
+# in every warp, 2 warp-aggregated where neighbouring lanes share a target
+K1_AGG = 2
 
 
 def reset_launches() -> None:
@@ -61,13 +56,11 @@ def _lib() -> ctypes.CDLL:
     if not _bound:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         f = lib.msbfs_propagate_planes_launch
-        f.argtypes = [p, p, p, p, p, p, p, p, p, ll, i, i, i, i, i, i, p]
+        f.argtypes = [p, p, p, p, p, p, p, p, p, ll, i, i, i, i, i, p]
         f.restype = i
         f = lib.msbfs_propagate_planes_tiled_launch
         f.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         f.restype = i
-        lib.msbfs_propagate_l2_release.argtypes = []
-        lib.msbfs_propagate_l2_release.restype = i
         _bound = True
     return lib
 
@@ -100,7 +93,7 @@ def msbfs_propagate_planes(frontier: torch.Tensor, seen: torch.Tensor,
     args = whole_launch_args(frontier, seen, src, tgt, valid, n_edges, new,
                              seen_out, cnt, op)
     raise_on_error(_lib().msbfs_propagate_planes_launch(
-        *args, K1_PLAN, K1_AGG, 0, stream_ptr(frontier.device)),
+        *args, PHASES_ALL, K1_AGG, stream_ptr(frontier.device)),
         "msbfs_propagate_planes")
     LAUNCHES["msbfs_propagate_planes"] += 1
     return new, seen_out, cnt
@@ -108,7 +101,7 @@ def msbfs_propagate_planes(frontier: torch.Tensor, seen: torch.Tensor,
 
 def whole_launch_args(frontier, seen, src, tgt, valid, n_edges, new,
                       seen_out, cnt, op: str) -> tuple:
-    """K1's checked arguments for its C launch function, up to the plan:
+    """K1's checked arguments for its C launch function, up to its phases:
     (frontier, seen, src, tgt, valid, n_edges, new, seen_out, count, m,
     n_rows, nw, op).  An int ``n_edges`` is clamped into m here."""
     dev = frontier.device

@@ -64,10 +64,8 @@ def test_whole_array_kernel(dev, n_rows, nw, m, op):
 
 K1_CASES = ("valid holes", "n_edges 0", "n_edges inside", "n_edges = m",
             "n_edges beyond m", "out of range", "fewer slots than threads")
-# K1's launch variants: (plan, warp aggregation, L2 window)
-K1_VARIANTS = ((kmod.K1_PLAN, kmod.K1_AGG, 0), (kmod.PLAN_ONE, 0, 0),
-               (kmod.PLAN_TWO, 1, 0), (kmod.PLAN_THREE, 1, 0),
-               (kmod.PLAN_L2, 1, 1))
+# K1's scatter aggregation modes (the wrapper's first)
+K1_AGG_MODES = (kmod.K1_AGG, 0, 1)
 
 
 def _k1_case(name, nw, seed, dev):
@@ -109,8 +107,8 @@ def _k1_case(name, nw, seed, dev):
 @pytest.mark.parametrize("case", K1_CASES)
 def test_whole_array_kernel_new_form(dev, case, nw, op):
     """K1 on the edge list as it stands (valid, n_edges on the card)
-    against its plain version, through the wrapper and every launch
-    variant of its C launch function; ``ops.msbfs_propagate(tile_rows=0)``
+    against its plain version, through the wrapper and every aggregation
+    mode of its C launch function; ``ops.msbfs_propagate(tile_rows=0)``
     too.  The grid always has far more threads than slots."""
     f, s, src, tgt, valid, ne = _k1_case(case, nw, nw * 31 + len(case), dev)
     want = ref.msbfs_propagate_planes_ref(f, s, src, tgt, op, valid, ne)
@@ -125,14 +123,13 @@ def test_whole_array_kernel_new_form(dev, case, nw, op):
     args = kmod.whole_launch_args(f, s, src, tgt, valid, ne, new, seen_out,
                                   cnt, op)
     lib = kmod._lib()
-    for plan, agg, l2 in K1_VARIANTS:
+    for agg in K1_AGG_MODES:
         new.fill_(-1)
         cnt.fill_(-1)
         assert lib.msbfs_propagate_planes_launch(
-            *args, plan, agg, l2, torch.cuda.current_stream(dev).cuda_stream
-        ) == 0
+            *args, kmod.PHASES_ALL, agg,
+            torch.cuda.current_stream(dev).cuda_stream) == 0
         _same((new, seen_out, cnt), want)
-    assert lib.msbfs_propagate_l2_release() == 0
     torch.cuda.synchronize()
 
 
