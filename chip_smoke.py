@@ -15,22 +15,23 @@ them.  Phases, each failing the run on any error:
   (c) kernels against their plain versions ON THE CARD, bit-exact: the
       propagate kernels K1/K2 (both combine ops; K1 in its trash-row form
       and on the edge list as it stands with valid and n_edges none / 0 /
-      inside / m / beyond m, every aggregation mode at nw 1, 2, 3, 4, 8; K2
+      inside / m / beyond m, its launches one at a time at nw 1, 2, 3, 4,
+      8; K2
       given its run heads) on the adversarial cases of the kernel test
       suites, then on every level of a real traversal of --graph at
       --batch roots and at 256 roots: K1 timed as the engine calls it
       (``ops.msbfs_propagate(tile_rows=0)``, wrapper included) and alone
-      (its C launch function's launches replayed from a CUDA graph: its
-      aggregation modes in turns, its P3 and zero launches alone), its
+      (its C launch function's three launches replayed from a CUDA
+      graph, its P3 and zero launches alone), its
       bound counting what the level's data makes it move, with a work
       estimate and the first design's padded bound beside it; K2's pad
       chunks logged per level, and K2 timed alone at three load widths;
       the P3 kernels K3/K4 on adversarial word counts, then on the inputs
       of every level of (h)'s 64 single-source runs (K4 into out= buffers
       as the runner calls it, with fresh outputs, and alone by graph
-      replay as launched, as one CTA and as the first design's atomics)
-      and of a bool-plane wave (K3); kernel, plain and bound times of
-      each, and the cost of K3's two transposes;
+      replay as launched and as the first design's atomics) and of a
+      bool-plane wave (K3); kernel, plain and bound times of each, and
+      the cost of K3's two transposes;
   (d) the serving path: ``serve_bfs(graph, batch)`` (warm-up + timed
       wave, auto kernel plan) with launch counts reset just before; every
       plane is validated Graph500-style on the card and 4 roots against a
@@ -338,44 +339,34 @@ def check_k1(args, op, what, valid=None, n_edges=None) -> int:
     return assert_same(got, want, f"K1 {what} [{op}]")
 
 
-# K1's scatter aggregation modes timed alone; the first is the wrapper's.
-K1_VARIANTS = {"kernel_only_ms": kmod.K1_AGG, "agg_every_warp_ms": 1,
-               "no_agg_ms": 0}
-
-
 def k1_alone(frontier, seen, src, tgt, valid, n_edges, reps: int) -> dict:
     """K1 alone: outputs made once, its C launch function's three launches
-    replayed from a CUDA graph (device time, :func:`graph_ms`) for every
-    aggregation mode of ``K1_VARIANTS`` in turns, forward then back, each
-    giving the first one's outputs; then its P3 launch and its zero launch
-    alone.  Returns the means, the largest spread of a mode's two turns
-    over its mean, p3_ms and zero_ms."""
+    replayed from a CUDA graph (device time, :func:`graph_ms`) in two
+    turns, the launches one at a time (zero, scatter, P3) giving the same
+    outputs as all three at once; then its P3 launch and its zero launch
+    alone.  Returns the mean, the spread of the two turns over it, p3_ms
+    and zero_ms."""
     lib = kmod._lib()
     new, seen_out = torch.empty_like(seen), torch.empty_like(seen)
     cnt = torch.empty((1, 1), dtype=torch.int32, device=seen.device)
     args = kmod.whole_launch_args(frontier, seen, src, tgt, valid, n_edges,
                                   new, seen_out, cnt, "or")
 
-    def run(agg, phases=kmod.PHASES_ALL):
+    def run(phases=kmod.PHASES_ALL):
         _build.raise_on_error(lib.msbfs_propagate_planes_launch(
-            *args, phases, agg, _build.stream_ptr(seen.device)),
-            f"K1 agg {agg} phases {phases}")
+            *args, phases, _build.stream_ptr(seen.device)),
+            f"K1 phases {phases}")
 
-    want = None
-    for name, agg in K1_VARIANTS.items():
-        run(agg)
-        got = (new.clone(), seen_out.clone(), cnt.clone())
-        want = want or got
-        assert_same(got, want, f"K1 variant {name}")
-    t = {name: [] for name in K1_VARIANTS}
-    for name in [*K1_VARIANTS, *reversed(K1_VARIANTS)]:
-        t[name].append(graph_ms(lambda: run(K1_VARIANTS[name]), reps))
-    out = {name: float(np.mean(v)) for name, v in t.items()}
-    out["turn_spread"] = max(abs(v[0] - v[1]) / np.mean(v)
-                             for v in t.values())
-    out["p3_ms"] = graph_ms(lambda: run(kmod.K1_AGG, 0x4), reps)
-    out["zero_ms"] = graph_ms(lambda: run(kmod.K1_AGG, 0x1), reps)
-    return out
+    run()
+    want = (new.clone(), seen_out.clone(), cnt.clone())
+    for phases in (0x1, 0x2, 0x4):
+        run(phases)
+    assert_same((new, seen_out, cnt), want, "K1 one launch at a time")
+    turns = [graph_ms(run, reps) for _ in range(2)]
+    return dict(kernel_only_ms=float(np.mean(turns)),
+                turn_spread=abs(turns[0] - turns[1]) / np.mean(turns),
+                p3_ms=graph_ms(lambda: run(0x4), reps),
+                zero_ms=graph_ms(lambda: run(0x1), reps))
 
 
 def check_k2(k2, tile_rows, block_edges, op, what) -> int:
@@ -492,7 +483,7 @@ def phase_small(dev) -> int:
             assert_same(got, want, f"ops msgs form {name} [{op}]")
     if not bit31:
         raise AssertionError("no small case had a word with bit 31 set")
-    # every K1 aggregation mode gives the same words at every nw it
+    # K1's launches one at a time give its words at every nw it
     # specialises (1, 2, 4, 8) and one it does not (3), a grid far larger
     # than the slots included
     for nw in (1, 2, 3, 4, 8):
@@ -503,8 +494,8 @@ def phase_small(dev) -> int:
         k1_alone(f, s, src, tgt, valid, None, 1)
     log(f"(c) small cases: {len(cases)} cases x 2 ops, K1 (the trash-row "
         "form, and valid with n_edges none / 0 / m/3 / m / m+7) + K2 + the "
-        "three ops paths bit-exact; K1's aggregation modes equal at nw 1, "
-        "2, 3, 4, 8")
+        "three ops paths bit-exact; K1's launches one at a time equal at nw "
+        "1, 2, 3, 4, 8")
     return err
 
 
@@ -636,16 +627,15 @@ def phase_real(g, deg: np.ndarray, graph: str, batch: int, seed: int
         per["msbfs_propagate_planes_tiled"].append(r2)
         nz = int((frontier != 0).any(1).sum())
         widths = r2.pop("widths")
-        k1v = " / ".join(f"{k[:-3]} {r1[k]:.4f}" for k in K1_VARIANTS
-                         if k in r1)
         log(f"(c) B={batch} level {lvl}: budget={m} n_edges={sl['slots']} "
             f"real edges={sl['real']} of them non-zero messages="
             f"{sl['live']} distinct source rows={sl['rows']} frontier rows="
             f"{nz} | K1 {r1['ms']:.4f} ms as the "
             f"engine calls it (bound {r1['bound_ms']:.4f}, work estimate "
             f"{r1['work_ms']:.4f}, padded bound {r1['padded_bound_ms']:.4f}, "
-            f"plain {r1['plain_ms']:.3f}); alone (graph replay) {k1v} (turn "
-            f"spread {r1['turn_spread']:.3f}); its P3 launch alone "
+            f"plain {r1['plain_ms']:.3f}); alone (graph replay) "
+            f"{r1['kernel_only_ms']:.4f} (turn spread "
+            f"{r1['turn_spread']:.3f}); its P3 launch alone "
             f"{r1['p3_ms']:.4f}, zero launch {r1['zero_ms']:.4f} "
             f"| K2 block_edges={be} tile_rows={tr} chunks={ct.shape[0]} pad "
             f"chunks={pad}: {r2['ms']:.4f} ms (bound {r2['bound_ms']:.4f}, "
@@ -671,9 +661,7 @@ def phase_real(g, deg: np.ndarray, graph: str, batch: int, seed: int
                      f"{r['feed_ms']:.4f} bucket_count_ms={r['count_ms']:.4f}")
         else:
             extra = (" (as the engine calls it, wrapper included) alone "
-                     "(graph replay): " +
-                     " ".join(f"{k}={r[k]:.4f}" for k in K1_VARIANTS
-                              if k in r) +
+                     f"(graph replay): kernel_only_ms={r['kernel_only_ms']:.4f}"
                      f" turn_spread_mean={r['turn_spread']:.4f} p3_launch_ms="
                      f"{r['p3_ms']:.4f} zero_launch_ms={r['zero_ms']:.4f} "
                      f"work_estimate_ms={r['work_ms']:.4f} "
@@ -772,10 +760,10 @@ def k4_alone(c: torch.Tensor, v: torch.Tensor, reps: int) -> dict:
     """K4 alone: outputs made once, the C launch function's launch replayed
     from a CUDA graph (device time, :func:`graph_ms`), in turns forward
     then back: as the wrapper launches it (the last CTA sums the
-    partials), as one CTA of 1024 threads, and as the first design ran
-    (K3's launch at one plane: an atomic a block into a count zeroed
-    once).  Each gives the same outputs.  Returns the means and the
-    largest spread of a variant's two turns over its mean."""
+    partials) and as the first design ran (K3's launch at one plane: an
+    atomic a block into a count zeroed once).  Each gives the same
+    outputs.  Returns the means and the larger spread of a variant's two
+    turns over its mean."""
     lib = kbu._lib()
     new, vout = torch.empty_like(c), torch.empty_like(v)
     cnt = torch.zeros((1, 1), dtype=torch.int32, device=c.device)
@@ -785,9 +773,7 @@ def k4_alone(c: torch.Tensor, v: torch.Tensor, reps: int) -> dict:
     w = int(c.numel())
     variants = {
         "kernel_only_ms": lambda st: lib.bitmap_update_launch(
-            *ptrs, scratch, w, kbu.K4_MAX_GRID, kbu.K4_THREADS, st),
-        "one_cta_ms": lambda st: lib.bitmap_update_launch(
-            *ptrs, scratch, w, 1, 1024, st),
+            *ptrs, scratch, w, st),
         "atomic_ms": lambda st: lib.bitmap_update_batch_launch(
             *ptrs, 1, w, st)}
 
@@ -859,9 +845,9 @@ def phase_p3_real(g, keys: np.ndarray, roots: np.ndarray) -> dict:
             log(f"(c) bitmap_update: wrapper into out= buffers (as the runner "
                 f"calls it) {r['ms']:.5f} ms, with fresh outputs "
                 f"{r['fresh_ms']:.5f}; alone (C launch function, graph "
-                f"replay): as launched {r['kernel_only_ms']:.5f}, one CTA of "
-                f"1024 threads {r['one_cta_ms']:.5f}, the first design (an "
-                f"atomic a block, count zeroed once) {r['atomic_ms']:.5f} "
+                f"replay): as launched {r['kernel_only_ms']:.5f}, the first "
+                f"design (an atomic a block, count zeroed once) "
+                f"{r['atomic_ms']:.5f} "
                 f"(turn spread mean {r['turn_spread']:.4f}; bound "
                 f"{r['bound_ms']:.5f})")
     out["transpose_ms"] = float(np.mean(trans_ms))

@@ -32,8 +32,6 @@ LAUNCHES = {"bitmap_update": 0, "bitmap_update_batch": 0}
 _LIB = "bitmap_update"
 _MAX_PLANES = 65535          # the grid's y extent
 _SCRATCH_WORDS = 1 + 132 * 16    # K4's arrival counter + a partial a block
-# K4's launch shape: the grid's cap (0: none) and the block size
-K4_MAX_GRID, K4_THREADS = 0, 256
 _bound = False
 _scratch: dict = {}
 
@@ -49,7 +47,7 @@ def _lib() -> ctypes.CDLL:
     if not _bound:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         f = lib.bitmap_update_launch
-        f.argtypes = [p, p, p, p, p, p, ll, i, i, p]
+        f.argtypes = [p, p, p, p, p, p, ll, p]
         f.restype = i
         f = lib.bitmap_update_batch_launch
         f.argtypes = [p, p, p, p, p, i, ll, p]
@@ -140,8 +138,7 @@ def bitmap_update(cand: torch.Tensor, visited: torch.Tensor, out=None):
         return tuple(out)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().bitmap_update_launch(
-        *ptrs, scratch_for(dev, stream).data_ptr(), w, K4_MAX_GRID,
-        K4_THREADS, stream)
+        *ptrs, scratch_for(dev, stream).data_ptr(), w, stream)
     raise_on_error(err, "bitmap_update")
     LAUNCHES["bitmap_update"] += 1
     return tuple(out)

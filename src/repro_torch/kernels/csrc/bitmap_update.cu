@@ -29,10 +29,13 @@
 //    array, and the last block to arrive (an arrival counter the kernel
 //    resets) sums them and stores the count; a grid of one block stores
 //    its sum directly.  Its wrapper takes optional `out=` buffers, so the
-//    single-source runner allocates nothing a level: at rmat20 the launch
-//    sits at latency and the wrapper's allocations and zero fill cost
-//    about 7x the kernel (0.0302 against 0.0042 ms, chip_smoke.py (c) on
-//    an H100).
+//    single-source runner allocates nothing a level.  At rmat20 (w =
+//    32,768) the kernel sits at launch latency: on an H100 (chip_smoke.py
+//    (c), CUDA-graph replay) it takes 0.0034 ms against 0.0021 for the
+//    first design's atomics into a count zeroed beforehand (the zero fill
+//    is a launch of its own), and one CTA of 1024 threads took 0.0074 ms.
+//    Its wrapper, three allocations and a zero fill before, took 7x the
+//    kernel (0.0302 against 0.0042 ms).
 //
 // Count width: a count is at most w * 32, which must stay below 2^31 (rmat20
 // at B = 64 has w * 32 = 2^25 per plane).
@@ -46,10 +49,9 @@ constexpr int kThreads = 256;
 // the grid's cap: a few waves of CTAs per SM (132 SMs) over all planes
 constexpr long long kMaxBlocks = 132LL * 16;
 
-// Sum of `v` over the block (any multiple of 32 threads up to 1024), valid
-// in thread 0.
+// Sum of `v` over the block, valid in thread 0.
 __device__ __forceinline__ int block_sum(int v) {
-  __shared__ int warp_sums[32];
+  __shared__ int warp_sums[kThreads / 32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   v = __reduce_add_sync(0xffffffffu, v);
@@ -57,7 +59,7 @@ __device__ __forceinline__ int block_sum(int v) {
   __syncthreads();
   v = 0;
   if (warp == 0) {
-    v = lane < (int)(blockDim.x >> 5) ? warp_sums[lane] : 0;
+    v = lane < kThreads / 32 ? warp_sums[lane] : 0;
     v = __reduce_add_sync(0xffffffffu, v);
   }
   __syncthreads();   // warp_sums may be reused by a second call
@@ -148,23 +150,21 @@ __global__ void p3_update_kernel(const unsigned int* __restrict__ cand,
 }
 
 int launch(const void* cand, const void* vis, void* new_out, void* vis_out,
-           void* counts, void* scratch, int g, long long w, int max_grid,
-           int threads, void* stream) {
+           void* counts, void* scratch, int g, long long w, void* stream) {
   if (g <= 0 || w <= 0) return (int)cudaSuccess;
   const uintptr_t any = (uintptr_t)cand | (uintptr_t)vis | (uintptr_t)new_out |
                         (uintptr_t)vis_out;
   // every plane starts 16-byte aligned only when w is a multiple of 4
   const int vec = (any % 16 == 0) && (g == 1 || w % 4 == 0);
   const long long per_thread = vec ? 4 : 1;
-  long long blocks = (w + threads * per_thread - 1) / (threads * per_thread);
+  long long blocks = (w + kThreads * per_thread - 1) / (kThreads * per_thread);
   // grid-stride loops: a few waves of CTAs per SM over all planes suffice
   long long cap = kMaxBlocks / g;
-  if (max_grid > 0 && cap > max_grid) cap = max_grid;
   if (cap < 1) cap = 1;
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
   const dim3 grid((unsigned int)blocks, (unsigned int)g);
-  p3_update_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+  p3_update_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const unsigned int*)cand, (const unsigned int*)vis,
       (unsigned int*)new_out, (unsigned int*)vis_out, (int*)counts,
       (int*)scratch, w, vec);
@@ -178,14 +178,10 @@ extern "C" {
 // K4: flat words [w].  `scratch`: int32[1 + 132 * 16], zeroed once before
 // its first launch; the kernel leaves it zero again, so launches that share
 // it must not overlap (one stream).  Nothing else needs zeroing.
-// max_grid (0: no cap) and threads (a multiple of 32, at most 1024) are
-// the grid's cap and the block size.
 int bitmap_update_launch(const void* cand, const void* vis, void* new_out,
                          void* vis_out, void* count, void* scratch,
-                         long long w, int max_grid, int threads,
-                         void* stream) {
-  return launch(cand, vis, new_out, vis_out, count, scratch, 1, w, max_grid,
-                threads, stream);
+                         long long w, void* stream) {
+  return launch(cand, vis, new_out, vis_out, count, scratch, 1, w, stream);
 }
 
 // K3: planes-major words [g, w]; `counts` (g int32) must be zeroed by the
@@ -193,8 +189,7 @@ int bitmap_update_launch(const void* cand, const void* vis, void* new_out,
 int bitmap_update_batch_launch(const void* cand, const void* vis, void* new_out,
                                void* vis_out, void* counts, int g, long long w,
                                void* stream) {
-  return launch(cand, vis, new_out, vis_out, counts, nullptr, g, w, 0,
-                kThreads, stream);
+  return launch(cand, vis, new_out, vis_out, counts, nullptr, g, w, stream);
 }
 
 }  // extern "C"

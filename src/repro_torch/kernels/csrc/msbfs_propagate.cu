@@ -3,7 +3,8 @@
 // Replaces the two Pallas TPU kernels of src/repro/kernels/msbfs_propagate.py:
 //
 //   K1  msbfs_propagate_planes        (pallas_call at msbfs_propagate.py:182,
-//       body _kernel)       -> propagate_whole_kernel
+//       body _kernel)       -> whole_zero_kernel, whole_scatter_kernel,
+//                              whole_p3_kernel
 //   K2  msbfs_propagate_planes_tiled  (pallas_call at msbfs_propagate.py:300,
 //       body _tiled_kernel) -> propagate_tiled_kernel
 //
@@ -13,15 +14,15 @@
 // where K1 gathers msg[e] = frontier[src[e]] itself and K2 reads messages
 // that the caller already gathered and bucketed by target row tile.
 //
-// Bound.  K1: the src, tgt and valid bytes of each slot it must read (the
-// slots below n_edges), the nw frontier words of each real edge, a
-// read-modify-write of the candidate words of each non-zero message, the
-// accumulator's zeroing and P3's four plane arrays (cand and seen read,
-// new and seen_out written).  K2: the messages and targets of the real
-// edges (nw * 4 + 4 bytes an edge) and three plane arrays (seen read, new
-// and seen_out written); pad slots are no work.  Everything is a few bytes
-// of work per byte moved, so the card's memory system bounds both kernels,
-// never its arithmetic.
+// Bound.  K1: what a level's data makes it move, each input read once and
+// each output written once: the src and valid bytes of each slot below
+// n_edges, the tgt of each real edge whose message is not zero, each
+// distinct frontier row the real edges read, seen, and the outputs new
+// and seen_out.  K2: the messages and targets of the real edges (nw * 4 +
+// 4 bytes an edge) and three plane arrays (seen read, new and seen_out
+// written); pad slots are no work.  Everything is a few bytes of work per
+// byte moved, so the card's memory system bounds both kernels, never its
+// arithmetic.
 //
 // Design against that bound:
 //  * K1 reads the engine's edge list as it stands: src, tgt and the valid
@@ -33,19 +34,28 @@
 //    word) over the whole padded budget (2^25 slots at rmat20-16), with a
 //    64-bit division and a reload of src and tgt for every word, after the
 //    wrapper had zeroed the accumulator and copied both plane arrays to
-//    append the trash row.  Now:
-//    - one slot a thread, four in flight: src (and valid) read once a
-//      slot, the row's nw words in one or two vector loads where nw is 1,
-//      2, 4 or 8 (scalars otherwise), tgt read only for a non-zero message;
-//    - warp-aggregated combines: the lanes whose targets match
-//      (__match_any_sync) reduce their words in the warp (__reduce_or_sync
-//      or __reduce_max_sync) and the group's lowest lane issues the
-//      atomic.  A pull level's slots come grouped by child, so most of its
-//      lanes share a target;
-//    - one persistent cooperative launch (occupancy x SMs CTAs, cached per
-//      device and instance) runs three phases with a grid barrier between
-//      them: zero the accumulator (the fresh `new`) and the count; scatter;
-//      P3 + popcount, one atomic a block.
+//    append the trash row.  Now three plain launches on one stream:
+//    - zero the accumulator (the fresh `new`) and the count;
+//    - scatter, one slot a thread, four in flight: src (and valid) read
+//      once a slot, the row's nw words in one or two vector loads where nw
+//      is 1, 2, 4 or 8 (scalars otherwise), tgt read only for a non-zero
+//      message.  A warp aggregates where some live lane's target equals
+//      its left neighbour's: the lanes whose targets match
+//      (__match_any_sync) reduce their words (__reduce_or_sync or
+//      __reduce_max_sync) and the group's lowest lane issues the atomic;
+//      other warps issue one atomic a non-zero word;
+//    - P3 + popcount over the whole arrays, one count atomic a block.
+//    Measured on an H100 at rmat20-16 (chip_smoke.py (c), K1 alone by
+//    CUDA-graph replay, means over a wave's 8 levels): aggregating in
+//    every warp took B = 64 from 0.31 to 0.093 ms (the dense pull levels
+//    from 1.2 to 0.30 ms) but doubled a push level whose targets do not
+//    repeat (0.036 to 0.079 ms); aggregating only where neighbours share a
+//    target keeps both gains (0.0875 ms; at B = 256 0.44 ms against 0.43
+//    in every warp and 1.64 without).  One cooperative launch with grid
+//    barriers between the phases, or a zero launch before a cooperative
+//    scatter + P3, ran within 1% of the three launches, and an L2
+//    access-policy window on the accumulator at B = 256 won 1.6%: below
+//    the 3% a more complex path must win by, so neither stayed.
 //  * K2 keeps one row tile's accumulator in shared memory, so the combines
 //    stay on the SM.  Its first design ran one CTA per tile over the tile's
 //    whole chunk run.  That lost twice: the bucketing hands every unused
@@ -203,13 +213,12 @@ whole_zero_kernel(unsigned int* acc, int* count, long long words, int vec4) {
 // tgt lies outside [0, n_rows) or whose message is zero.  One slot a
 // thread, kUnroll in flight; src (and valid) read once a slot, tgt only
 // for a non-zero message.  NW > 0: the row's words held in registers;
-// NW == 0: any nw, scalar loads.  AGG: 0 one atomic a non-zero word; 1
-// every warp aggregates (__match_any_sync on the target); 2 a warp
-// aggregates only where some live lane's target equals its left
-// neighbour's (a pull level's slots come grouped by child; a push level's
-// targets rarely repeat).  The loop is warp-uniform, so every lane reaches
-// each ballot.
-template <int OP, int NW, int AGG>
+// NW == 0: any nw, scalar loads.  A warp aggregates a slot group's
+// combines (__match_any_sync on the target) only where some live lane's
+// target equals its left neighbour's: a pull level's slots come grouped
+// by child, a push level's targets rarely repeat.  The loop is
+// warp-uniform, so every lane reaches each ballot.
+template <int OP, int NW>
 __global__ void __launch_bounds__(kThreads)
 whole_scatter_kernel(WholeArgs a) {
   constexpr int HW = NW > 0 ? NW : 1;
@@ -253,19 +262,15 @@ whole_scatter_kernel(WholeArgs a) {
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const bool live = t[u] >= 0;
-      bool agg = false, leader = true;
+      const unsigned int act = __ballot_sync(0xffffffffu, live);
+      const int left = __shfl_up_sync(0xffffffffu, t[u], 1);
+      const bool agg =
+          __ballot_sync(0xffffffffu, live && lane > 0 && left == t[u]) != 0u;
       unsigned int grp = 0u;
-      if constexpr (AGG != 0) {
-        const unsigned int act = __ballot_sync(0xffffffffu, live);
-        agg = act != 0u;
-        if constexpr (AGG == 2) {
-          const int left = __shfl_up_sync(0xffffffffu, t[u], 1);
-          agg = __ballot_sync(0xffffffffu, live && lane > 0 && left == t[u]) != 0u;
-        }
-        if (live && agg) {
-          grp = __match_any_sync(act, t[u]);
-          leader = lane == __ffs(grp) - 1;
-        }
+      bool leader = true;
+      if (live && agg) {
+        grp = __match_any_sync(act, t[u]);
+        leader = lane == __ffs(grp) - 1;
       }
       if (!live) continue;
       unsigned int* dst = a.acc + (long long)t[u] * nw;
@@ -570,7 +575,7 @@ cudaError_t sm_count(int* sms) {
 // K1's grid: as many CTAs as the scatter instance keeps resident (its
 // occupancy at kThreads times the SM count), queried once per device and
 // instance; the zero and P3 launches take the same grid.
-template <int OP, int NW, int AGG>
+template <int OP, int NW>
 cudaError_t whole_grid(int* grid) {
   static int cached[kMaxDevices];
   static std::mutex lock;
@@ -584,7 +589,7 @@ cudaError_t whole_grid(int* grid) {
     err = sm_count(&sms);
     if (err != cudaSuccess) return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, whole_scatter_kernel<OP, NW, AGG>, kThreads, 0);
+        &per_sm, whole_scatter_kernel<OP, NW>, kThreads, 0);
     if (err != cudaSuccess) return err;
     cached[dev] = sms * (per_sm < 1 ? 1 : per_sm);
   }
@@ -594,10 +599,10 @@ cudaError_t whole_grid(int* grid) {
 
 // K1's three launches, those whose bit is set in `phases` (1 zero, 2
 // scatter, 4 P3), in that order on one stream.
-template <int OP, int NW, int AGG>
+template <int OP, int NW>
 cudaError_t launch_whole(const WholeArgs& a, int phases, cudaStream_t st) {
   int grid = 0;
-  cudaError_t err = whole_grid<OP, NW, AGG>(&grid);
+  cudaError_t err = whole_grid<OP, NW>(&grid);
   if (err != cudaSuccess) return err;
   if (phases & 1) {
     whole_zero_kernel<<<grid, kThreads, 0, st>>>(a.acc, a.count, a.words,
@@ -605,7 +610,7 @@ cudaError_t launch_whole(const WholeArgs& a, int phases, cudaStream_t st) {
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if (phases & 2) {
-    whole_scatter_kernel<OP, NW, AGG><<<grid, kThreads, 0, st>>>(a);
+    whole_scatter_kernel<OP, NW><<<grid, kThreads, 0, st>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if (phases & 4) {
@@ -623,14 +628,13 @@ extern "C" {
 // int32[m]; valid: bool[m] or null; n_edges: a device int32 scalar or
 // null.  Nothing needs zeroing: the first launch clears new_out (the
 // accumulator) and the count.  phases: the launches to run (7: all three;
-// a subset for timing one); agg: the scatter's aggregation mode (see
-// whole_scatter_kernel).
+// a subset for timing one).
 int msbfs_propagate_planes_launch(const void* frontier, const void* seen,
                                   const void* src, const void* tgt,
                                   const void* valid, const void* n_edges,
                                   void* new_out, void* seen_out, void* count,
                                   long long m, int n_rows, int nw, int op,
-                                  int phases, int agg, void* stream) {
+                                  int phases, void* stream) {
   WholeArgs a;
   a.frontier = (const unsigned int*)frontier;
   a.seen = (const unsigned int*)seen;
@@ -656,11 +660,8 @@ int msbfs_propagate_planes_launch(const void* frontier, const void* seen,
                   : (nw == 4 || nw == 8) && f % 16 == 0 ? nw
                                                         : 0;
   cudaStream_t st = (cudaStream_t)stream;
-#define K1_CASE(OPV, NWV)                                                   \
-  if (op == OPV && row == NWV)                                              \
-    return (int)(agg == 2   ? launch_whole<OPV, NWV, 2>(a, phases, st)     \
-                 : agg == 1 ? launch_whole<OPV, NWV, 1>(a, phases, st)     \
-                            : launch_whole<OPV, NWV, 0>(a, phases, st));
+#define K1_CASE(OPV, NWV) \
+  if (op == OPV && row == NWV) return (int)launch_whole<OPV, NWV>(a, phases, st);
   K1_CASE(kOpOr, 0) K1_CASE(kOpOr, 1) K1_CASE(kOpOr, 2) K1_CASE(kOpOr, 4)
   K1_CASE(kOpOr, 8) K1_CASE(kOpMax, 0) K1_CASE(kOpMax, 1) K1_CASE(kOpMax, 2)
   K1_CASE(kOpMax, 4) K1_CASE(kOpMax, 8)

@@ -40,9 +40,6 @@ _bound = False
 
 # K1's launches (``csrc/msbfs_propagate.cu``): bit 1 zero, 2 scatter, 4 P3
 PHASES_ALL = 0x7
-# the scatter's combines: 0 one atomic a non-zero word, 1 warp-aggregated
-# in every warp, 2 warp-aggregated where neighbouring lanes share a target
-K1_AGG = 2
 
 
 def reset_launches() -> None:
@@ -56,7 +53,7 @@ def _lib() -> ctypes.CDLL:
     if not _bound:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         f = lib.msbfs_propagate_planes_launch
-        f.argtypes = [p, p, p, p, p, p, p, p, p, ll, i, i, i, i, i, p]
+        f.argtypes = [p, p, p, p, p, p, p, p, p, ll, i, i, i, i, p]
         f.restype = i
         f = lib.msbfs_propagate_planes_tiled_launch
         f.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
@@ -93,7 +90,7 @@ def msbfs_propagate_planes(frontier: torch.Tensor, seen: torch.Tensor,
     args = whole_launch_args(frontier, seen, src, tgt, valid, n_edges, new,
                              seen_out, cnt, op)
     raise_on_error(_lib().msbfs_propagate_planes_launch(
-        *args, PHASES_ALL, K1_AGG, stream_ptr(frontier.device)),
+        *args, PHASES_ALL, stream_ptr(frontier.device)),
         "msbfs_propagate_planes")
     LAUNCHES["msbfs_propagate_planes"] += 1
     return new, seen_out, cnt

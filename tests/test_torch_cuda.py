@@ -64,8 +64,6 @@ def test_whole_array_kernel(dev, n_rows, nw, m, op):
 
 K1_CASES = ("valid holes", "n_edges 0", "n_edges inside", "n_edges = m",
             "n_edges beyond m", "out of range", "fewer slots than threads")
-# K1's scatter aggregation modes (the wrapper's first)
-K1_AGG_MODES = (kmod.K1_AGG, 0, 1)
 
 
 def _k1_case(name, nw, seed, dev):
@@ -107,9 +105,10 @@ def _k1_case(name, nw, seed, dev):
 @pytest.mark.parametrize("case", K1_CASES)
 def test_whole_array_kernel_new_form(dev, case, nw, op):
     """K1 on the edge list as it stands (valid, n_edges on the card)
-    against its plain version, through the wrapper and every aggregation
-    mode of its C launch function; ``ops.msbfs_propagate(tile_rows=0)``
-    too.  The grid always has far more threads than slots."""
+    against its plain version, through the wrapper, through its C launch
+    function's three launches one at a time, and through
+    ``ops.msbfs_propagate(tile_rows=0)``.  The grid always has far more
+    threads than slots."""
     f, s, src, tgt, valid, ne = _k1_case(case, nw, nw * 31 + len(case), dev)
     want = ref.msbfs_propagate_planes_ref(f, s, src, tgt, op, valid, ne)
     kmod.reset_launches()
@@ -123,13 +122,12 @@ def test_whole_array_kernel_new_form(dev, case, nw, op):
     args = kmod.whole_launch_args(f, s, src, tgt, valid, ne, new, seen_out,
                                   cnt, op)
     lib = kmod._lib()
-    for agg in K1_AGG_MODES:
-        new.fill_(-1)
-        cnt.fill_(-1)
+    new.fill_(-1)
+    cnt.fill_(-1)
+    for phases in (0x1, 0x2, 0x4):
         assert lib.msbfs_propagate_planes_launch(
-            *args, kmod.PHASES_ALL, agg,
-            torch.cuda.current_stream(dev).cuda_stream) == 0
-        _same((new, seen_out, cnt), want)
+            *args, phases, torch.cuda.current_stream(dev).cuda_stream) == 0
+    _same((new, seen_out, cnt), want)
     torch.cuda.synchronize()
 
 
@@ -328,8 +326,7 @@ def test_bitmap_update_kernel(dev, w):
 @pytest.mark.parametrize("w", [1, 129, 32768, 1 << 21])
 def test_bitmap_update_kernel_out_buffers(dev, w):
     """K4 into out= buffers, three calls in a row on changing inputs (the
-    kernel resets its arrival counter), at one block and at many; one CTA
-    of 1024 threads gives the same."""
+    kernel resets its arrival counter), at one block and at many."""
     o = (torch.empty(w, dtype=torch.int32, device=dev),
          torch.empty(w, dtype=torch.int32, device=dev),
          torch.empty((1, 1), dtype=torch.int32, device=dev))
@@ -340,12 +337,6 @@ def test_bitmap_update_kernel_out_buffers(dev, w):
         got = kbu.bitmap_update(c, v, out=o)
         assert all(a is b for a, b in zip(got, o))
         _same(got, ref.bitmap_update_ref(c, v))
-    o[2].fill_(-1)
-    assert kbu._lib().bitmap_update_launch(
-        c.data_ptr(), v.data_ptr(), o[0].data_ptr(), o[1].data_ptr(),
-        o[2].data_ptr(), kbu.scratch_for(dev).data_ptr(), w, 1, 1024,
-        torch.cuda.current_stream(dev).cuda_stream) == 0
-    _same(o, ref.bitmap_update_ref(c, v))
     assert int(kbu.scratch_for(dev)[0]) == 0
     with pytest.raises(ValueError):
         kbu.bitmap_update(c, v, out=(c, o[1], o[2]))

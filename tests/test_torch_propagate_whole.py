@@ -30,7 +30,7 @@ from repro_torch.graph import get_dataset            # noqa: E402
 from repro_torch.interop import planes_from_numpy, planes_to_numpy  # noqa: E402
 from repro_torch.kernels import bitmap_update as kbu  # noqa: E402
 from repro_torch.kernels import msbfs_propagate as kmod  # noqa: E402
-from repro_torch.kernels import ops, ref             # noqa: E402
+from repro_torch.kernels import ops                  # noqa: E402
 
 _planes_ref = jax.jit(jref.msbfs_propagate_planes_ref, static_argnames="op")
 
