@@ -1490,11 +1490,11 @@ def phase_flash(seed: int, dev) -> dict:
 
 
 def profile_device(label: str, run, top: int = 12,
-                   keep: str = "propagate_") -> None:
+                   keep: tuple = ("propagate_", "whole_")) -> None:
     """Device time by kernel name over one call of ``run`` (warm, ending in
     a device sync; torch.profiler), and the share of its host wall time
-    the device was idle.  Kernels past the ``top`` whose name holds
-    ``keep`` are listed too."""
+    the device was idle.  Kernels past the ``top`` whose name holds one
+    of ``keep`` are listed too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1519,7 +1519,8 @@ def profile_device(label: str, run, top: int = 12,
     busy = sum(r[0] for r in rows)
     log(f"(g) profile {label}: wall {wall_ms:.2f} ms (profiled), device "
         f"busy {busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}")
-    shown = rows[:top] + [r for r in rows[top:] if keep in r[2]]
+    shown = rows[:top] + [r for r in rows[top:]
+                          if any(k in r[2] for k in keep)]
     for ms, count, key in shown:
         log(f"(g)   {ms:9.3f} ms {100 * ms / busy:5.1f}% x{count:<5d} "
             f"{key[:90]}")
@@ -1544,7 +1545,7 @@ def phase_profile_sbfs(g, keys: np.ndarray) -> None:
     root = int(keys[int(np.argsort(secs)[2])])
     runner.run(root)                                   # warm-up
     profile_device(f"(h) single-source root {root} (BFSRunner.run)",
-                   lambda: runner.run(root), keep="p3_update")
+                   lambda: runner.run(root), keep=("p3_update",))
 
 
 def main(argv=None) -> int:

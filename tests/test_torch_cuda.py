@@ -133,15 +133,18 @@ def test_whole_array_kernel_new_form(dev, case, nw, op):
 
 @pytest.mark.cuda
 def test_whole_array_kernel_reads_no_slot_past_n_edges(dev):
-    """Slots at and after n_edges hold indices far out of any array; the
-    kernel must not read them (a read would fault or count)."""
+    """Slots at and after n_edges hold valid in-range edges whose messages
+    are not zero; none of them may reach the outputs."""
     f, s, src, tgt, valid, _ = _k1_case("valid holes", 2, 5, dev)
-    src[200:] = 1 << 30
-    tgt[200:] = 1 << 30
+    f[3] = -1
+    src[200:] = 3
+    tgt[200:] = torch.arange(100, device=dev, dtype=torch.int32) % 41
     valid[200:] = True
-    ne = torch.tensor(200, dtype=torch.int32, device=dev)
     want = ref.msbfs_propagate_planes_ref(f, s, src[:200], tgt[:200], "or",
                                           valid[:200])
+    assert not torch.equal(want[0], ref.msbfs_propagate_planes_ref(
+        f, s, src, tgt, "or", valid)[0])
+    ne = torch.tensor(200, dtype=torch.int32, device=dev)
     _same(kmod.msbfs_propagate_planes(f, s, src, tgt, "or", valid, ne), want)
     _same(kmod.msbfs_propagate_planes(f, s, src, tgt, "or", valid, 200), want)
     torch.cuda.synchronize()
