@@ -54,6 +54,25 @@ them.  Phases, each failing the run on any error:
       symmetric);
   (k) integrity: a ``witness`` wave equals (d)'s levels; a wave with one
       injected frontier bit flip must raise ``IntegrityError``;
+  (p) supervised async serving: ``serve_bfs_async`` (256 requests, window
+      0.05 s, max_batch 64, pipelined, ``EngineSupervisor`` with 2
+      retries and the ``audit`` integrity tier at SERVE_AUDIT_RATE) closed
+      loop, then open loop (Poisson) at half the rate the closed loop
+      sustained, then two pooled workers closed loop on 128 requests;
+      every served row validated Graph500-style on the card; no demotion,
+      retry, timeout or quarantine, at least two audits, no audit
+      failure; K1 launched in every run; a served wave's time split into
+      its levels and its readback, and what the audit tier adds to it;
+  (q) chaos on the card: ``DynamicBatcher`` over ``EngineSupervisor``
+      (``witness``, explicit wave deadline) over ``FaultyEngine`` with a
+      fixed ``FaultPlan`` — two kernel faults in one wave (a
+      ``kernels->boolplane`` demotion whose wave launches K3 and gives the
+      packed engine's rows), a runtime fault, a stuck wave, a plane flip
+      and a result flip — serving 128 requests in five waves, one of them
+      carrying an out-of-range root; every request resolves with a row
+      that validates or a typed error, the bad root is quarantined,
+      neither flip is served, and no runner on the card ever has its
+      kernels turned off;
   (l) the paged CSR gather K5, bit-exact: adversarial pages, counts, ids
       out of range and a misaligned edge array, then ``read_neighbor_pages``
       over --graph's edge array for the largest level of (h)'s first root
@@ -78,7 +97,8 @@ them.  Phases, each failing the run on any error:
       share over one wave of each plan at --batch and over one
       single-source root of (h) (torch.profiler).
 
-The last line of standard output is the result:
+Before the ``kernels`` line, one ``serving`` JSON line carries (p)'s and
+(q)'s numbers.  The last line of standard output is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -112,7 +132,7 @@ from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import msbfs_propagate as kmod  # noqa: E402
 from repro_torch.kernels import pull_spmv as kps  # noqa: E402
 from repro_torch.launch.roofline import H100, roofline_terms  # noqa: E402
-from repro_torch.launch.serve import serve_bfs  # noqa: E402
+from repro_torch.launch.serve import serve_bfs, serve_bfs_async  # noqa: E402
 
 # kernel name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -1122,6 +1142,246 @@ def phase_integrity(g, roots: np.ndarray, want: np.ndarray) -> None:
         raise AssertionError("an injected plane bit flip went undetected")
 
 
+# -- (p) supervised async serving, (q) chaos on the card ----------------------
+
+SERVE_REQUESTS, POOL_REQUESTS = 256, 128
+SERVE_WINDOW, SERVE_MAX_BATCH = 0.05, 64
+# IntegrityConfig's seed 0 draws 0.637, 0.270, 0.041, 0.017, ...: at 0.05
+# the third and fourth waves of a run are audited, so the closed loop's
+# four full waves give two audits
+SERVE_AUDIT_RATE = 0.05
+
+
+def serve_run(ds, graph: str, seed: int, dev, label: str, requests: int,
+              **kw) -> dict:
+    """One ``serve_bfs_async`` run with launch counts reset just before;
+    every served row validated on the card; the fault-free contract held.
+    Returns its stats (without the rows) and its launches."""
+    reset_launches()
+    t0 = time.perf_counter()
+    out = serve_bfs_async(graph, requests=requests, window=SERVE_WINDOW,
+                          max_batch=SERVE_MAX_BATCH, pipeline=True,
+                          ft_max_retries=2, ft_integrity="audit",
+                          ft_audit_rate=SERVE_AUDIT_RATE, seed=seed,
+                          device=dev, keep_levels=True, **kw)
+    wall = time.perf_counter() - t0
+    counts = launches()
+    roots, levels = out.pop("roots"), out.pop("levels")
+    fts = out["fault_tolerance"]
+    fts = fts if isinstance(fts, list) else [fts]
+    summary = dict(
+        waves=out["waves"],
+        mean_batch=round(out["requests"] / max(out["waves"], 1), 2),
+        latency_p50=out["latency_p50"], latency_p99=out["latency_p99"],
+        aggregate_teps=out["aggregate_teps"],
+        busy_seconds=out["busy_seconds"],
+        engine_idle_seconds=out["engine_idle_seconds"],
+        stream_seconds=round(out["stream_seconds"], 4),
+        busy_share=round(out["busy_seconds"] / out["stream_seconds"], 4),
+        sustained_rps=round(roots.size / out["stream_seconds"], 2),
+        rate=out["rate"], supervisor=fts, integrity=out["integrity"],
+        launches=counts)
+    log(f"({label}) serve_bfs_async({graph!r}, {requests} requests, "
+        f"{kw}) wall={wall:.2f}s (engine build and warm-up included)")
+    log(f"({label}) " + json.dumps(summary))
+    if out.get("errors") or out.get("requests_failed") or \
+            roots.size != requests:
+        raise AssertionError(f"({label}) {requests - roots.size} requests "
+                             f"failed: errors={out.get('errors')}")
+    for ft in fts:
+        for k in ("retries", "timeouts", "bisections"):
+            if ft[k]:
+                raise AssertionError(f"({label}) supervisor {k}={ft[k]} in "
+                                     "a fault-free run")
+        if ft["demotions"] or ft["quarantined"]:
+            raise AssertionError(f"({label}) demotions {ft['demotions']} "
+                                 f"quarantined {ft['quarantined']}")
+    if out["integrity"]["audit_failures"] or out["integrity"]["violations"]:
+        raise AssertionError(f"({label}) integrity {out['integrity']}")
+    if counts["msbfs_propagate_planes"] <= 0:
+        raise AssertionError(f"({label}) K1 was never launched")
+    t0 = time.perf_counter()
+    graph500_validate(ds, roots, levels, ds.csr.num_vertices, dev)
+    log(f"({label}) Graph500 validation of all {roots.size} served rows "
+        f"passed ({time.perf_counter() - t0:.2f}s)")
+    return summary
+
+
+def phase_serve_async(ds, g, graph: str, seed: int, dev) -> dict:
+    """(p) Closed loop, open loop at half its sustained rate, a pool of
+    two workers; then one 64-root wave of the served stream's roots split
+    into its levels and its readback, and what the audit tier adds to
+    it."""
+    from repro_torch.ft import check_level_rows
+    from repro_torch.launch.serve import bfs_batch
+    closed = serve_run(ds, graph, seed, dev, "p closed", SERVE_REQUESTS)
+    rate = 0.5 * closed["sustained_rps"]
+    opened = serve_run(ds, graph, seed, dev, "p open", SERVE_REQUESTS,
+                       rate=rate)
+    pool = serve_run(ds, graph, seed, dev, "p pool", POOL_REQUESTS,
+                     workers=2)
+    audits = sum(r["integrity"]["audits"] for r in (closed, opened, pool))
+    if closed["integrity"]["audits"] < 2:
+        raise AssertionError(f"(p) closed loop audited "
+                             f"{closed['integrity']['audits']} waves, "
+                             "expected at least 2")
+    deg = np.diff(ds.csr.indptr)
+    roots = np.random.default_rng(seed).choice(
+        np.flatnonzero(deg > 0), SERVE_MAX_BATCH, replace=True)
+    runner = MultiSourceBFSRunner(g)
+    bfs_batch(roots, engine=runner, out_deg=deg)          # warm-up
+    w = bfs_batch(roots, engine=runner, out_deg=deg)
+    lv = sum(runner.last_level_seconds)
+    split = dict(wave_seconds=w["seconds"], levels_seconds=round(lv, 4),
+                 readback_seconds=round(w["seconds"] - lv, 4),
+                 readback_share=round(1 - lv / w["seconds"], 4))
+    # what the audit tier adds to a served wave: the runner's own checks
+    # (statvec slot, witness, host row guards) inside the wave, then the
+    # supervisor's host row check and the per-request row copies after it
+    audited = MultiSourceBFSRunner(g, integrity="audit")
+    bfs_batch(roots, engine=audited, out_deg=deg)         # warm-up
+    a = bfs_batch(roots, engine=audited, out_deg=deg)
+    t0 = time.perf_counter()
+    check_level_rows(a["levels"], roots, a["iterations"])
+    t1 = time.perf_counter()
+    copies = [np.ascontiguousarray(r) for r in a["levels"]]
+    t2 = time.perf_counter()
+    del copies
+    split.update(audit_tier_wave_seconds=a["seconds"],
+                 host_row_check_seconds=round(t1 - t0, 4),
+                 row_copies_seconds=round(t2 - t1, 4))
+    log(f"(p) audits over the three runs: {audits}; a served wave of "
+        f"{SERVE_MAX_BATCH}: {json.dumps(split)}")
+    return dict(closed=closed, open=opened, pool=pool, audits=audits,
+                audit_rate=SERVE_AUDIT_RATE, wave_split=split)
+
+
+class GuardedRunner(MultiSourceBFSRunner):
+    """A card runner that fails the run if anything turns its kernels off
+    (the card has no plain torch rung)."""
+
+    def __setattr__(self, name, value):
+        if name == "use_kernels" and not value:
+            raise AssertionError("use_kernels set to False on a CUDA runner")
+        super().__setattr__(name, value)
+
+
+CHAOS_WAVES = ((0, 32), (32, 64), (64, 96), (96, 112), (112, 128))
+# engine-call index -> fault: calls 0-2 are the first wave (two kernel
+# faults, then the demoted wave); 3-14 the second (the out-of-range root
+# first, isolated in six failing calls, 13 a clean half hit by a runtime
+# fault); 15-16 the stuck wave; 17-18 the plane flip; 19-20 the result flip
+CHAOS_PLAN = ((0, "kernel"), (1, "kernel"), (13, "runtime"), (15, "stuck"),
+              (17, "plane_flip"), (19, "result_flip"))
+CHAOS_DEADLINE, CHAOS_STALL = 1.0, 2.0
+
+
+def phase_chaos(ds, g, deg: np.ndarray, seed: int, dev) -> dict:
+    """(q) The fault schedule of ``tests/test_torch_chaos.py`` on the card,
+    one fake-clock wave at a time."""
+    from repro_torch.ft import (EngineSupervisor, FaultPlan, FaultyEngine,
+                                RequestQuarantined, WaveAbandoned,
+                                WaveTimeout)
+    from repro_torch.launch.dynbatch import BFSFuture, DynamicBatcher
+    runner = GuardedRunner(g)
+    roots = np.random.default_rng(seed + 1).choice(
+        np.flatnonzero(deg > 0), CHAOS_WAVES[-1][1]).astype(np.int64)
+    bad = int(g.n) + 5
+    packed0 = runner.run(roots[:32]).levels          # also the warm-up
+    row = runner.run(roots[96:112]).levels[0]
+    far = int(np.flatnonzero(row >= 3)[0])           # INF counts too
+    chaos = FaultyEngine(runner, FaultPlan(CHAOS_PLAN),
+                         plane_flip=(1, far, 0), result_flip=(0, 0, 16),
+                         stall_seconds=CHAOS_STALL)
+    sup = EngineSupervisor(chaos, integrity="witness", max_retries=3,
+                           wave_deadline=CHAOS_DEADLINE)
+    clock = [0.0]
+    batcher = DynamicBatcher(sup, out_deg=deg, window=1.0, max_batch=32,
+                             clock=lambda: clock[0])
+    futures, per_wave = [], []
+    t_all = time.perf_counter()
+    for w, (lo, hi) in enumerate(CHAOS_WAVES):
+        if w == 1:      # past submit()'s check, as a redispatch would be
+            f = BFSFuture(bad, clock[0])
+            batcher._submit_future(f)
+            futures.append(f)
+            lo += 1
+        futures += [batcher.submit(int(r), block=False)
+                    for r in roots[lo:hi]]
+        reset_launches()
+        t0 = time.perf_counter()
+        ws = batcher.flush()
+        secs = time.perf_counter() - t0
+        counts = launches()
+        z = sup._zombie
+        if z is not None:
+            z.join(60.0)
+        if len(ws) != 1:
+            raise AssertionError(f"(q) wave {w} cut into {len(ws)} waves")
+        rec = dict(wave=w, batch=ws[0].batch, traversals=ws[0].traversals,
+                   retries=ws[0].retries, timeouts=ws[0].timeouts,
+                   failed=ws[0].failed, quarantined=ws[0].quarantined,
+                   demotions=ws[0].demotions, seconds=round(secs, 4),
+                   launches=counts)
+        per_wave.append(rec)
+        log(f"(q) wave {w}: {json.dumps(rec)}")
+        if runner.use_kernels is not True:
+            raise AssertionError("(q) a CUDA runner lost its kernels")
+    batcher.close()
+    wall = time.perf_counter() - t_all
+    st = sup.stats()
+    log(f"(q) supervisor {json.dumps(st)} injected={chaos.plan.injected} "
+        f"flips={chaos.flips} wall={wall:.2f}s")
+    w0 = per_wave[0]
+    if w0["demotions"] != ["kernels->boolplane"]:
+        raise AssertionError(f"(q) wave 0 demotions {w0['demotions']}")
+    if w0["launches"]["bitmap_update_batch"] <= 0:
+        raise AssertionError("(q) the demoted wave never launched K3")
+    if any(r["launches"]["msbfs_propagate_planes"] <= 0
+           for r in per_wave[1:]):
+        raise AssertionError("(q) a packed wave never launched K1")
+    if chaos.plan.pending():
+        raise AssertionError(f"(q) faults never fired: "
+                             f"{chaos.plan.pending()}")
+    typed = (WaveAbandoned, RequestQuarantined, WaveTimeout)
+    ok_roots, ok_rows = [], []
+    for f in futures:
+        exc = f.exception(timeout=0)
+        if not f.done():
+            raise AssertionError(f"(q) root {f.root} never resolved")
+        if exc is None:
+            ok_roots.append(f.root)
+            ok_rows.append(f.result(timeout=0))
+        elif not isinstance(exc, typed):
+            raise AssertionError(f"(q) root {f.root}: untyped {exc!r}")
+        elif f.root != bad:
+            raise AssertionError(f"(q) clean root {f.root} failed: {exc!r}")
+    bad_f = [f for f in futures if f.root == bad]
+    if not (len(bad_f) == 1 and isinstance(bad_f[0].exception(),
+                                           RequestQuarantined)
+            and st["quarantined"] == [bad]):
+        raise AssertionError("(q) the out-of-range root was not quarantined")
+    if st["integrity"]["violations"] < 2 or len(chaos.flips) != 2:
+        raise AssertionError(f"(q) flips {chaos.flips} violations "
+                             f"{st['integrity']['violations']}")
+    if st["timeouts"] < 1:
+        raise AssertionError("(q) the stuck wave never timed out")
+    ok_rows = np.stack(ok_rows)
+    if not np.array_equal(ok_rows[:32], packed0):
+        raise AssertionError("(q) the demoted wave's rows differ from the "
+                             "packed engine's")
+    t0 = time.perf_counter()
+    graph500_validate(ds, np.asarray(ok_roots), ok_rows,
+                      ds.csr.num_vertices, dev)
+    log(f"(q) {len(ok_roots)} served rows validated Graph500-style "
+        f"({time.perf_counter() - t0:.2f}s); the demoted wave's rows equal "
+        "the packed engine's; the out-of-range root quarantined; neither "
+        "flip served")
+    return dict(supervisor=st, waves=per_wave, wall_seconds=round(wall, 4),
+                served=len(ok_roots), requests=len(futures),
+                deadline=CHAOS_DEADLINE, stall_seconds=CHAOS_STALL)
+
+
 # -- (l) the paged CSR gather K5 ---------------------------------------------
 
 GATHER_PAGE = 128                # the real size's page (512 bytes)
@@ -1622,6 +1882,10 @@ def main(argv=None) -> int:
                         d["out"]["aggregate_teps"])
     phase_programs(args.graph, args.batch, args.seed, dev, d)
     phase_integrity(g, wave_roots, d["levels"])
+
+    # (p) supervised async serving; (q) chaos on the card
+    serving = dict(p=phase_serve_async(ds, g, args.graph, args.seed, dev),
+                   q=phase_chaos(ds, g, deg, args.seed, dev))
     for name in KERNELS:             # K1-K4: integer work, no library call
         if name in real:
             real[name].update(bound_by="bytes", library_ms=None)
@@ -1669,6 +1933,7 @@ def main(argv=None) -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     log(f"(f) total {time.perf_counter() - t_start:.1f}s")
     log(card)
+    log(json.dumps({"serving": serving}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,8 +10,20 @@ symmetrized graph) or unit-weight SSSP (``--algo sssp``):
   PYTHONPATH=src python -m repro_torch.launch.serve --bfs-graph rmat20-16 \
       --bfs-batch 64 [--algo bfs|cc|sssp] [--bfs-sparse-pull] [--device cpu]
 
-prints one JSON line.  The dynamic batcher, the worker pool, the fault
-tolerance layer and the distributed engine are not ported yet.
+prints one JSON line.
+
+Async path: stream SINGLE-root queries through the dynamic batcher
+(``repro_torch.launch.dynbatch``), which coalesces everything arriving
+within a window into one MS-BFS wave and reports latency percentiles and
+aggregate TEPS; ``--ft-*`` put the fault-tolerance supervisor
+(``repro_torch.ft``) in front of the engine, ``--bfs-workers`` a worker
+pool (``repro_torch.launch.pool``):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --bfs-graph rmat20-16 \
+      --bfs-serve-async --bfs-requests 256 --bfs-max-batch 64 \
+      --bfs-pipeline --ft-integrity audit [--bfs-rate 200] [--device cpu]
+
+The distributed engine is not ported yet.
 """
 from __future__ import annotations
 
@@ -103,6 +115,156 @@ def serve_bfs(graph: str, batch: int, seed: int = 0, algo: str = "bfs", *,
     return out
 
 
+def serve_bfs_async(graph: str, requests: int = 64, window: float = 0.05,
+                    max_batch: int = 32, rate: float | None = None,
+                    seed: int = 0, algo: str = "bfs",
+                    workers: int = 1, pipeline: bool = False,
+                    slo: float | None = None, sparse_pull: bool = False,
+                    ft_max_retries: int | None = None,
+                    ft_wave_deadline: float | None = None,
+                    ft_chaos: float | None = None,
+                    ft_integrity: str | None = None,
+                    ft_audit_rate: float = 0.05,
+                    pool_evict_after: int | None = None,
+                    shed: bool = False, *, device=None,
+                    tile_rows: int | None = None,
+                    keep_levels: bool = False) -> dict:
+    """Serve a stream of single-root queries through the dynamic batcher.
+
+    ``rate`` (req/s) spaces submissions as an open-loop Poisson stream;
+    ``rate=None`` submits as fast as possible.  ``algo`` picks the vertex
+    program — the batcher itself is engine-agnostic (the ``BFSEngine``
+    protocol), so CC and SSSP waves coalesce exactly like BFS waves.  The
+    graph lives on ``device`` (None = the CUDA card).
+
+    Serving knobs: ``max_batch`` may span several plane words (e.g. 96 =
+    three words per wave); ``pipeline=True`` cuts/pads wave N+1 while
+    wave N traverses; ``slo`` attaches that relative deadline (seconds)
+    to every request so waves cut urgency-first and ``stats()`` reports
+    the miss rate; ``workers > 1`` runs a
+    :class:`~repro_torch.launch.pool.WorkerPool` of engines (sharing one
+    device-resident graph) behind one submit surface, each worker
+    supervised independently when fault tolerance is on.
+
+    Fault tolerance: ``ft_max_retries`` / ``ft_wave_deadline`` wrap the
+    engine in an ``EngineSupervisor`` (typed retries, quarantine
+    bisection, watchdog, degradation ladder); ``ft_chaos`` additionally
+    interposes a ``FaultyEngine`` injecting faults at that per-wave rate.
+    With a supervisor, the returned stats carry a ``fault_tolerance``
+    block and failed requests resolve with typed errors instead of
+    raising here.
+
+    Integrity & resilience: ``ft_integrity`` picks the answer-validation
+    tier (``off`` | ``invariants`` | ``witness`` | ``audit``, see
+    ``repro_torch.ft.integrity``; implies supervision), ``ft_audit_rate``
+    the sampled fraction of clean waves the ``audit`` tier re-runs
+    through the reference rung.  ``pool_evict_after`` sets the worker
+    pool's consecutive-failure eviction threshold (``workers > 1``);
+    ``shed`` turns on admission control.  The returned stats then carry
+    an ``integrity`` block (checks / violations / audits / sheds /
+    evictions) summed across workers.
+
+    Returns the batcher's aggregate stats (waves, mean batch, latency
+    p50/p99, aggregate TEPS over busy time) as a JSON-friendly dict.
+    ``keep_levels=True`` also returns the stream's wall time
+    (``stream_seconds``, submit of the first request to the drain) and,
+    in submission order, the ``roots`` and value rows (``levels``) of
+    every request served with a row (for validation).
+    """
+    from repro_torch.launch.dynbatch import (DynamicBatcher, drive_open_loop,
+                                             plane_wave_sizes)
+
+    if workers < 1:
+        raise ValueError(f"need workers >= 1, got {workers}")
+    engine, deg = build_engine(graph, algo=algo, device=device,
+                               tile_rows=tile_rows, sparse_pull=sparse_pull)
+    rng = np.random.default_rng(seed)
+    roots = rng.choice(np.flatnonzero(deg > 0), requests, replace=True)
+    for m in plane_wave_sizes(max_batch):      # warm-up: builds, launches
+        bfs_batch(np.resize(roots, m), engine=engine, out_deg=deg)
+    # extra workers share the device-resident graph; the kernels are
+    # built once per process, so the warm-up above covers every worker
+    if workers > 1 and not hasattr(engine, "g"):
+        raise ValueError("workers > 1 needs local runner engines "
+                         "(a pool of distributed engines is not ported)")
+    engines = [engine] + [type(engine)(engine.g, tile_rows=tile_rows,
+                                       sparse_pull=sparse_pull)
+                          for _ in range(workers - 1)]
+    supervised = (ft_max_retries is not None or ft_wave_deadline is not None
+                  or ft_chaos is not None or ft_integrity is not None)
+    if supervised:
+        from repro_torch.ft import (EngineSupervisor, FaultPlan,
+                                    FaultyEngine, IntegrityConfig)
+        integrity = (None if ft_integrity is None else
+                     IntegrityConfig(mode=ft_integrity,
+                                     audit_rate=ft_audit_rate))
+        wrapped = []
+        for i, e in enumerate(engines):
+            if ft_chaos:
+                # rough horizon: every request could end up a singleton
+                # wave; each worker draws an independent fault schedule
+                plan = FaultPlan.random(max(2 * requests, 16), ft_chaos,
+                                        seed=seed + i)
+                e = FaultyEngine(e, plan)
+            wrapped.append(EngineSupervisor(
+                e,
+                max_retries=2 if ft_max_retries is None else ft_max_retries,
+                wave_deadline=ft_wave_deadline,
+                integrity=integrity))
+        engines = wrapped
+    kw = dict(out_deg=deg, window=window, max_batch=max_batch,
+              pipeline=pipeline, shed=shed)
+    if len(engines) > 1:
+        from repro_torch.launch.pool import WorkerPool
+        if pool_evict_after is not None:
+            kw["evict_after"] = pool_evict_after
+        batcher = WorkerPool(engines, **kw)
+    else:
+        batcher = DynamicBatcher(engines[0], **kw)
+    futures = []
+    t0 = time.perf_counter()
+    try:
+        futures = drive_open_loop(batcher, roots, rate=rate, rng=rng,
+                                  raise_errors=not supervised,
+                                  deadline=slo, allow_shed=shed)
+    finally:
+        stream_seconds = time.perf_counter() - t0
+        out = batcher.stats()
+    out.update(graph=graph, algo=algo, requests=requests, window=window,
+               max_batch=max_batch, rate=rate)
+    if slo is not None:
+        out["slo"] = slo
+    if supervised or shed:
+        out["integrity"] = _integrity_summary(out)
+    if keep_levels:
+        served = [f for f in futures if f.exception() is None]
+        out.update(stream_seconds=stream_seconds,
+                   roots=np.asarray([f.root for f in served], np.int64),
+                   levels=(np.stack([f.result(timeout=0) for f in served])
+                           if served else None))
+    return out
+
+
+def _integrity_summary(stats: dict) -> dict:
+    """One JSON-friendly resilience rollup: integrity detector counters
+    summed across workers plus the pool's shedding/eviction totals."""
+    ft = stats.get("fault_tolerance")
+    blocks = (ft if isinstance(ft, list) else [ft]) if ft else []
+    acc = dict(checks=0, violations=0, audits=0, audit_failures=0)
+    mode = "off"
+    for b in blocks:
+        ig = (b or {}).get("integrity")
+        if not ig:
+            continue
+        mode = ig.get("mode", mode)
+        for k in acc:
+            acc[k] += int(ig.get(k, 0))
+    acc["mode"] = mode
+    acc["sheds"] = int(stats.get("shed", 0))
+    acc["evictions"] = int(stats.get("evictions", 0))
+    return acc
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--bfs-graph", required=True,
@@ -114,11 +276,78 @@ def main(argv=None):
     ap.add_argument("--bfs-sparse-pull", action="store_true",
                     help="budgeted sparse pull on tail levels (reads "
                          "only unvisited vertices' in-lists)")
+    ap.add_argument("--bfs-serve-async", action="store_true",
+                    help="serve single-root queries through the dynamic "
+                         "batcher (launch.dynbatch) instead of one "
+                         "pre-batched call")
+    ap.add_argument("--bfs-window", type=float, default=0.05,
+                    help="coalescing window in seconds (async serving)")
+    ap.add_argument("--bfs-max-batch", type=int, default=32,
+                    help="wave size cap = plane slots per MS-BFS wave")
+    ap.add_argument("--bfs-requests", type=int, default=64,
+                    help="number of single-root queries to stream (async)")
+    ap.add_argument("--bfs-rate", type=float,
+                    help="open-loop Poisson arrival rate in req/s "
+                         "(default: submit as fast as possible)")
+    ap.add_argument("--bfs-workers", type=int, default=1,
+                    help="engine worker pool size (async serving; "
+                         "engines share the device-resident graph)")
+    ap.add_argument("--bfs-pipeline", action="store_true",
+                    help="pipeline wave cutting against the engine "
+                         "(cutter/dispatcher/finisher stages)")
+    ap.add_argument("--bfs-slo", type=float,
+                    help="attach this relative deadline (seconds) to "
+                         "every request; waves cut urgency-first and "
+                         "stats report the SLO miss rate")
+    ap.add_argument("--ft-max-retries", type=int,
+                    help="wrap the engine in an EngineSupervisor with this "
+                         "transient-retry cap (async serving only)")
+    ap.add_argument("--ft-wave-deadline", type=float,
+                    help="fixed wave-watchdog deadline in seconds "
+                         "(default: auto-calibrated from the running "
+                         "median wave time); implies supervision")
+    ap.add_argument("--ft-chaos", type=float,
+                    help="inject faults at this per-wave rate through the "
+                         "deterministic chaos engine (implies supervision)")
+    ap.add_argument("--ft-integrity",
+                    choices=("off", "invariants", "witness", "audit"),
+                    help="traversal-integrity detector tier (implies "
+                         "supervision): statvec invariants, sampled "
+                         "witness audit, or rate-sampled differential "
+                         "audit vs the reference rung")
+    ap.add_argument("--ft-audit-rate", type=float, default=0.05,
+                    help="fraction of clean waves the audit tier re-runs "
+                         "through the reference rung (default 0.05)")
+    ap.add_argument("--pool-evict-after", type=int,
+                    help="evict a pool worker after this many consecutive "
+                         "engine-failure waves (workers > 1; queued and "
+                         "failing futures redispatch to survivors)")
+    ap.add_argument("--shed", action="store_true",
+                    help="admission control: refuse deadline requests "
+                         "whose estimated queue delay already exceeds "
+                         "their SLO (typed Overloaded, fails fast)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    out = serve_bfs(args.bfs_graph, args.bfs_batch, algo=args.algo,
-                    device=args.device, sparse_pull=args.bfs_sparse_pull)
+    if args.bfs_serve_async:
+        out = serve_bfs_async(args.bfs_graph, requests=args.bfs_requests,
+                              window=args.bfs_window,
+                              max_batch=args.bfs_max_batch,
+                              rate=args.bfs_rate, algo=args.algo,
+                              workers=args.bfs_workers,
+                              pipeline=args.bfs_pipeline,
+                              slo=args.bfs_slo,
+                              sparse_pull=args.bfs_sparse_pull,
+                              ft_max_retries=args.ft_max_retries,
+                              ft_wave_deadline=args.ft_wave_deadline,
+                              ft_chaos=args.ft_chaos,
+                              ft_integrity=args.ft_integrity,
+                              ft_audit_rate=args.ft_audit_rate,
+                              pool_evict_after=args.pool_evict_after,
+                              shed=args.shed, device=args.device)
+    else:
+        out = serve_bfs(args.bfs_graph, args.bfs_batch, algo=args.algo,
+                        device=args.device, sparse_pull=args.bfs_sparse_pull)
     print(json.dumps(out))
 
 

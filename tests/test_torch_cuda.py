@@ -683,3 +683,93 @@ def test_flash_attention_kernel_refuses_what_it_cannot_take(dev):
     f = torch.zeros((1, 128, 64), device=dev)
     with pytest.raises(ValueError, match="divide"):
         kfa.flash_attention(f, f, f, block_q=96, block_k=64)
+
+
+# -- the supervisor's ladder and audit on the card ------------------------------
+
+class _NoKernelsOff:
+    """Wraps a card runner's attribute writes: turning its kernels off
+    fails the test (the card has no plain torch rung)."""
+
+    def __init__(self, runner):
+        cls = type(runner)
+
+        def guard(self, name, value):
+            if name == "use_kernels" and not value:
+                raise AssertionError("use_kernels turned off on the card")
+            object.__setattr__(self, name, value)
+
+        runner.__class__ = type(f"Guarded{cls.__name__}", (cls,),
+                                {"__setattr__": guard})
+        self.runner = runner
+
+
+@pytest.mark.cuda
+def test_card_ladder_passes_over_the_torch_rung(dev):
+    """Two kernel faults in one wave demote a card runner straight to the
+    bool-plane rung (K3 on the card), whose rows equal the packed ones;
+    the kernels stay on and the runner is packed again after the wave."""
+    from repro_torch import ft
+    _, card = _card_and_cpu_graphs(dev)
+    roots = np.asarray([0, 5, 5, 191, 255] + list(range(20, 47)))
+    runner = _NoKernelsOff(MultiSourceBFSRunner(card)).runner
+    want = runner.run(roots).levels
+    chaos = ft.FaultyEngine(runner, ft.FaultPlan([(0, "kernel"),
+                                                  (1, "kernel")]))
+    sup = ft.EngineSupervisor(chaos, backoff=0.0, watchdog=False,
+                              max_retries=3)
+    kbu.reset_launches()
+    wave = sup.run_wave(roots)
+    assert wave.demotions == ["kernels->boolplane"]
+    assert wave.n_failed == 0
+    np.testing.assert_array_equal(np.stack([o.levels for o in wave.outcomes]),
+                                  want)
+    assert kbu.LAUNCHES["bitmap_update_batch"] > 0
+    assert runner.use_kernels is True and runner.packed is True
+
+
+@pytest.mark.cuda
+def test_card_demotion_scales_the_deadline_by_slack_squared(dev):
+    from repro_torch import ft
+    _, card = _card_and_cpu_graphs(dev)
+    runner = _NoKernelsOff(MultiSourceBFSRunner(card)).runner
+    chaos = ft.FaultyEngine(runner, ft.FaultPlan([(0, "kernel"),
+                                                  (1, "kernel")]))
+    sup = ft.EngineSupervisor(chaos, backoff=0.0, wave_deadline=2.0,
+                              demotion_slack=3.0, sticky_demotions=True,
+                              max_retries=3)
+    assert sup.run_wave(np.arange(32)).n_failed == 0
+    assert sup.current_deadline() == pytest.approx(18.0)
+    assert runner.packed is False and runner.use_kernels is True
+
+
+@pytest.mark.cuda
+def test_card_kernel_fault_text_drives_the_ladder(dev):
+    from repro_torch import ft
+    from repro_torch.kernels import _build
+    with pytest.raises(RuntimeError) as exc:
+        _build.raise_on_error(700, "msbfs_propagate_planes")
+    assert ft.is_kernel_fault(exc.value)
+    assert ft.is_kernel_fault(RuntimeError(
+        "nvcc failed for msbfs_propagate.cu (rc 1):\n..."))
+
+
+@pytest.mark.cuda
+def test_card_audit_of_a_boolplane_engine_returns(dev):
+    """A bool-plane runner on the card has no rung left that the card may
+    run: the audit tier returns without touching ``use_kernels``, and a
+    packed runner's audit runs the bool-plane rung and agrees."""
+    from repro_torch import ft
+    _, card = _card_and_cpu_graphs(dev)
+    roots = np.arange(40)
+    for packed, audits in ((False, 0), (True, 2)):
+        runner = _NoKernelsOff(MultiSourceBFSRunner(card,
+                                                    packed=packed)).runner
+        sup = ft.EngineSupervisor(runner, backoff=0.0, watchdog=False,
+                                  integrity=ft.IntegrityConfig(
+                                      mode="audit", audit_rate=1.0))
+        for _ in range(2):
+            assert sup.run_wave(roots).n_failed == 0
+        st = sup.stats()["integrity"]
+        assert st["audits"] == audits and st["audit_failures"] == 0
+        assert runner.packed is packed and runner.use_kernels is True
