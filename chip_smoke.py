@@ -61,8 +61,10 @@ them.  Phases, each failing the run on any error:
       sustained, then two pooled workers closed loop on 128 requests;
       every served row validated Graph500-style on the card; no demotion,
       retry, timeout or quarantine, at least two audits, no audit
-      failure; K1 launched in every run; a served wave's time split into
-      its levels and its readback, and what the audit tier adds to it;
+      failure; K1 launched by every run's served waves (counted from the
+      stream's start, past ``serve_bfs_async``'s warm-up) and K3 by its
+      audits; a served wave's time split into its levels and its
+      readback, and what the audit tier adds to it;
   (q) chaos on the card: ``DynamicBatcher`` over ``EngineSupervisor``
       (``witness``, explicit wave deadline) over ``FaultyEngine`` with a
       fixed ``FaultPlan`` — two kernel faults in one wave (a
@@ -104,6 +106,7 @@ Before the ``kernels`` line, one ``serving`` JSON line carries (p)'s and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import statistics
@@ -885,7 +888,9 @@ def graph500_validate(ds, roots: np.ndarray, levels: np.ndarray, iters: int,
     edge u->v with level[v] > level[u] + 1, and every reached non-root has
     an in-neighbour at level - 1."""
     n = levels.shape[1]
-    lv = torch.from_numpy(np.ascontiguousarray(levels.T)).to(dev)  # [n, B]
+    # rows arrive [B, n]: transpose them on the card, not on the host
+    lv = torch.from_numpy(np.ascontiguousarray(levels)).to(dev)
+    lv = lv.T.contiguous()                                      # [n, B]
     b = lv.shape[1]
     chunk = max((1 << 28) // b, 1 << 16)    # edges a pass: 1 GB of levels
     cols = torch.arange(b, device=dev)
@@ -1152,20 +1157,60 @@ SERVE_WINDOW, SERVE_MAX_BATCH = 0.05, 64
 SERVE_AUDIT_RATE = 0.05
 
 
+@contextlib.contextmanager
+def counted_from_stream(marks: dict):
+    """Reset the launch counts where ``serve_bfs_async`` starts its stream
+    (its call of ``drive_open_loop``), past the engine build and the
+    warm-up waves, so what ``launches()`` reads after it is the served
+    waves' and the audits' alone.  ``marks`` gets the seconds the build
+    and warm-up took and the seconds the audits' re-runs took."""
+    from repro_torch.ft import supervisor
+    from repro_torch.launch import dynbatch
+    drive, t0 = dynbatch.drive_open_loop, time.perf_counter()
+    audit = supervisor.EngineSupervisor._differential_audit
+    marks["audit_seconds"] = 0.0
+
+    def drive_counted(*a, **kw):
+        marks["build_warmup_seconds"] = round(time.perf_counter() - t0, 4)
+        reset_launches()
+        return drive(*a, **kw)
+
+    def audit_timed(self, *a, **kw):
+        t = time.perf_counter()
+        try:
+            return audit(self, *a, **kw)
+        finally:
+            marks["audit_seconds"] += time.perf_counter() - t
+
+    dynbatch.drive_open_loop = drive_counted
+    supervisor.EngineSupervisor._differential_audit = audit_timed
+    try:
+        yield
+    finally:
+        dynbatch.drive_open_loop = drive
+        supervisor.EngineSupervisor._differential_audit = audit
+        marks["audit_seconds"] = round(marks["audit_seconds"], 4)
+
+
 def serve_run(ds, graph: str, seed: int, dev, label: str, requests: int,
               **kw) -> dict:
-    """One ``serve_bfs_async`` run with launch counts reset just before;
-    every served row validated on the card; the fault-free contract held.
-    Returns its stats (without the rows) and its launches."""
+    """One ``serve_bfs_async`` run, launch counts reset as its stream
+    starts; every served row validated on the card; the fault-free
+    contract held.  Returns its stats (without the rows), the stream's
+    launches and where the call's wall time went."""
     reset_launches()
+    marks = {}
     t0 = time.perf_counter()
-    out = serve_bfs_async(graph, requests=requests, window=SERVE_WINDOW,
-                          max_batch=SERVE_MAX_BATCH, pipeline=True,
-                          ft_max_retries=2, ft_integrity="audit",
-                          ft_audit_rate=SERVE_AUDIT_RATE, seed=seed,
-                          device=dev, keep_levels=True, **kw)
+    with counted_from_stream(marks):
+        out = serve_bfs_async(graph, requests=requests, window=SERVE_WINDOW,
+                              max_batch=SERVE_MAX_BATCH, pipeline=True,
+                              ft_max_retries=2, ft_integrity="audit",
+                              ft_audit_rate=SERVE_AUDIT_RATE, seed=seed,
+                              device=dev, keep_levels=True, **kw)
     wall = time.perf_counter() - t0
     counts = launches()
+    if "build_warmup_seconds" not in marks:
+        raise AssertionError(f"({label}) the stream never started")
     roots, levels = out.pop("roots"), out.pop("levels")
     fts = out["fault_tolerance"]
     fts = fts if isinstance(fts, list) else [fts]
@@ -1180,9 +1225,12 @@ def serve_run(ds, graph: str, seed: int, dev, label: str, requests: int,
         busy_share=round(out["busy_seconds"] / out["stream_seconds"], 4),
         sustained_rps=round(roots.size / out["stream_seconds"], 2),
         rate=out["rate"], supervisor=fts, integrity=out["integrity"],
-        launches=counts)
+        launches=counts, call_seconds=round(wall, 4), **marks)
     log(f"({label}) serve_bfs_async({graph!r}, {requests} requests, "
-        f"{kw}) wall={wall:.2f}s (engine build and warm-up included)")
+        f"{kw}) wall={wall:.2f}s: engine build and warm-up "
+        f"{marks['build_warmup_seconds']:.2f}s, stream "
+        f"{out['stream_seconds']:.2f}s (engine busy "
+        f"{out['busy_seconds']:.2f}s, audits {marks['audit_seconds']:.2f}s)")
     log(f"({label}) " + json.dumps(summary))
     if out.get("errors") or out.get("requests_failed") or \
             roots.size != requests:
@@ -1199,11 +1247,14 @@ def serve_run(ds, graph: str, seed: int, dev, label: str, requests: int,
     if out["integrity"]["audit_failures"] or out["integrity"]["violations"]:
         raise AssertionError(f"({label}) integrity {out['integrity']}")
     if counts["msbfs_propagate_planes"] <= 0:
-        raise AssertionError(f"({label}) K1 was never launched")
+        raise AssertionError(f"({label}) the served waves never launched K1")
+    if out["integrity"]["audits"] and counts["bitmap_update_batch"] <= 0:
+        raise AssertionError(f"({label}) the audits never launched K3")
     t0 = time.perf_counter()
     graph500_validate(ds, roots, levels, ds.csr.num_vertices, dev)
+    summary["validate_seconds"] = round(time.perf_counter() - t0, 4)
     log(f"({label}) Graph500 validation of all {roots.size} served rows "
-        f"passed ({time.perf_counter() - t0:.2f}s)")
+        f"passed ({summary['validate_seconds']:.2f}s)")
     return summary
 
 
@@ -1214,6 +1265,7 @@ def phase_serve_async(ds, g, graph: str, seed: int, dev) -> dict:
     it."""
     from repro_torch.ft import check_level_rows
     from repro_torch.launch.serve import bfs_batch
+    t_phase = time.perf_counter()
     closed = serve_run(ds, graph, seed, dev, "p closed", SERVE_REQUESTS)
     rate = 0.5 * closed["sustained_rps"]
     opened = serve_run(ds, graph, seed, dev, "p open", SERVE_REQUESTS,
@@ -1238,9 +1290,8 @@ def phase_serve_async(ds, g, graph: str, seed: int, dev) -> dict:
     # what the audit tier adds to a served wave: the runner's own checks
     # (statvec slot, witness, host row guards) inside the wave, then the
     # supervisor's host row check and the per-request row copies after it
-    audited = MultiSourceBFSRunner(g, integrity="audit")
-    bfs_batch(roots, engine=audited, out_deg=deg)         # warm-up
-    a = bfs_batch(roots, engine=audited, out_deg=deg)
+    runner.integrity = "audit"              # the same runner, already warm
+    a = bfs_batch(roots, engine=runner, out_deg=deg)
     t0 = time.perf_counter()
     check_level_rows(a["levels"], roots, a["iterations"])
     t1 = time.perf_counter()
@@ -1250,10 +1301,12 @@ def phase_serve_async(ds, g, graph: str, seed: int, dev) -> dict:
     split.update(audit_tier_wave_seconds=a["seconds"],
                  host_row_check_seconds=round(t1 - t0, 4),
                  row_copies_seconds=round(t2 - t1, 4))
+    phase_s = round(time.perf_counter() - t_phase, 4)
     log(f"(p) audits over the three runs: {audits}; a served wave of "
-        f"{SERVE_MAX_BATCH}: {json.dumps(split)}")
+        f"{SERVE_MAX_BATCH}: {json.dumps(split)}; (p) took {phase_s:.2f}s")
     return dict(closed=closed, open=opened, pool=pool, audits=audits,
-                audit_rate=SERVE_AUDIT_RATE, wave_split=split)
+                audit_rate=SERVE_AUDIT_RATE, wave_split=split,
+                phase_seconds=phase_s)
 
 
 class GuardedRunner(MultiSourceBFSRunner):
@@ -1283,6 +1336,7 @@ def phase_chaos(ds, g, deg: np.ndarray, seed: int, dev) -> dict:
                                 RequestQuarantined, WaveAbandoned,
                                 WaveTimeout)
     from repro_torch.launch.dynbatch import BFSFuture, DynamicBatcher
+    t_phase = time.perf_counter()
     runner = GuardedRunner(g)
     roots = np.random.default_rng(seed + 1).choice(
         np.flatnonzero(deg > 0), CHAOS_WAVES[-1][1]).astype(np.int64)
@@ -1373,13 +1427,15 @@ def phase_chaos(ds, g, deg: np.ndarray, seed: int, dev) -> dict:
     t0 = time.perf_counter()
     graph500_validate(ds, np.asarray(ok_roots), ok_rows,
                       ds.csr.num_vertices, dev)
+    phase_s = round(time.perf_counter() - t_phase, 4)
     log(f"(q) {len(ok_roots)} served rows validated Graph500-style "
         f"({time.perf_counter() - t0:.2f}s); the demoted wave's rows equal "
         "the packed engine's; the out-of-range root quarantined; neither "
-        "flip served")
+        f"flip served; (q) took {phase_s:.2f}s")
     return dict(supervisor=st, waves=per_wave, wall_seconds=round(wall, 4),
                 served=len(ok_roots), requests=len(futures),
-                deadline=CHAOS_DEADLINE, stall_seconds=CHAOS_STALL)
+                deadline=CHAOS_DEADLINE, stall_seconds=CHAOS_STALL,
+                phase_seconds=phase_s)
 
 
 # -- (l) the paged CSR gather K5 ---------------------------------------------

@@ -719,17 +719,17 @@ class VertexProgramRunner:
         dt = time.perf_counter() - t0
         # value rows, per-plane traversed-edge counts (each <= E, so int32
         # is safe) and, with the witness on, its int32[2] verdict come back
-        # in ONE transfer, so host_transfers stays iterations + 2
-        final = [value[: g.n], _plane_traversed(g, value)]
+        # in ONE transfer, so host_transfers stays iterations + 2; the rows
+        # are transposed on the device, so each arrives contiguous
+        final = [value[: g.n].T, _plane_traversed(g, value)]
         if witness:
             k = min(self.witness_k, g.n)
             sample = torch.from_numpy(
                 self._witness_rng.integers(0, g.n, size=k)).to(g.device)
             final.append(_witness_check(g, value, sample,
                                         self.witness_budget))
-        rows_cm, trav, *wit = self._fetch_many(*final)
+        rows, trav, *wit = self._fetch_many(*final)  # rows [B, n]
         wit = wit[0] if wit else None
-        rows = rows_cm.T                             # [B, n]
         if check:
             self._guard_rows(rows, roots, lvl)
             if wit is not None and not int(wit[1]) and int(wit[0]):

@@ -127,7 +127,6 @@ def serve_bfs_async(graph: str, requests: int = 64, window: float = 0.05,
                     ft_audit_rate: float = 0.05,
                     pool_evict_after: int | None = None,
                     shed: bool = False, *, device=None,
-                    tile_rows: int | None = None,
                     keep_levels: bool = False) -> dict:
     """Serve a stream of single-root queries through the dynamic batcher.
 
@@ -177,7 +176,7 @@ def serve_bfs_async(graph: str, requests: int = 64, window: float = 0.05,
     if workers < 1:
         raise ValueError(f"need workers >= 1, got {workers}")
     engine, deg = build_engine(graph, algo=algo, device=device,
-                               tile_rows=tile_rows, sparse_pull=sparse_pull)
+                               sparse_pull=sparse_pull)
     rng = np.random.default_rng(seed)
     roots = rng.choice(np.flatnonzero(deg > 0), requests, replace=True)
     for m in plane_wave_sizes(max_batch):      # warm-up: builds, launches
@@ -187,8 +186,7 @@ def serve_bfs_async(graph: str, requests: int = 64, window: float = 0.05,
     if workers > 1 and not hasattr(engine, "g"):
         raise ValueError("workers > 1 needs local runner engines "
                          "(a pool of distributed engines is not ported)")
-    engines = [engine] + [type(engine)(engine.g, tile_rows=tile_rows,
-                                       sparse_pull=sparse_pull)
+    engines = [engine] + [type(engine)(engine.g, sparse_pull=sparse_pull)
                           for _ in range(workers - 1)]
     supervised = (ft_max_retries is not None or ft_wave_deadline is not None
                   or ft_chaos is not None or ft_integrity is not None)

@@ -1091,6 +1091,32 @@ def test_serve_bfs_async_pool_of_two_workers():
         tserve.serve_bfs_async("small-12-8", workers=0, device="cpu")
 
 
+def test_serve_bfs_async_takes_the_reference_parameters():
+    """The port's serving entry takes the reference's parameters with the
+    reference's defaults, in its order, plus only where the graph lives
+    (``device``) and whether the served rows come back (``keep_levels``)."""
+    import inspect
+    ref = inspect.signature(jserve.serve_bfs_async).parameters
+    port = inspect.signature(tserve.serve_bfs_async).parameters
+    assert list(port)[:len(ref)] == list(ref)
+    assert set(port) - set(ref) == {"device", "keep_levels"}
+    for name, p in ref.items():
+        assert port[name].default == p.default, name
+
+
+@pytest.mark.parametrize("b", [1, 32, 40])
+def test_packed_wave_rows_arrive_contiguous(graph, b):
+    """A packed wave's value rows come back transposed on the device: each
+    row is contiguous (the batcher's per-request copy is one memcpy), and
+    the rows equal the reference's bit for bit."""
+    ref, port = graph.pkgs
+    roots = np.random.default_rng(b).choice(N, b, replace=False)
+    want = np.asarray(ref.engine().run_batch(roots))
+    got = port.engine().run_batch(roots)
+    assert got.shape == (b, N) and got.flags.c_contiguous
+    np.testing.assert_array_equal(got, want)
+
+
 def test_cli_async_prints_one_json_line(capsys):
     import json
     tserve.main(["--bfs-graph", "small-12-8", "--bfs-serve-async",
