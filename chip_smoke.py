@@ -75,6 +75,18 @@ them.  Phases, each failing the run on any error:
       that validates or a typed error, the bad root is quarantined,
       neither flip is served, and no runner on the card ever has its
       kernels turned off;
+  (r) the distributed engine (``DistributedBFS``) in a one-rank NCCL
+      group on the card (a file store in a temporary directory) over a
+      ("data",) mesh of 1: (r1) the paper's peak configuration
+      ``scalabfs-32pc-64pe`` (bitmap, staged crossbar, beamer; 64 shards =
+      32 PCs x 2 PEs on one rank) runs one ``run_batch`` wave of (d)'s
+      roots; every plane validated as in (d), the rows equal (d)'s, K2
+      (the batched pull's msgs form) launched on every pull step, one pull
+      level's K2 call equal to its plain version; then a warm wave with
+      the same rows; (r2) Fig. 10 on one card: single-source ``run`` from
+      8 of (h)'s keys at 1, 4, 16 and 64 PEs (bitmap, flat crossbar), each
+      root equal to the numpy BFS, median GTEPS per k; one queue-dispatch
+      run at 64 PEs, equal to the numpy BFS;
   (l) the paged CSR gather K5, bit-exact: adversarial pages, counts, ids
       out of range and a misaligned edge array, then ``read_neighbor_pages``
       over --graph's edge array for the largest level of (h)'s first root
@@ -90,17 +102,20 @@ them.  Phases, each failing the run on any error:
       head dim 128, S = 8192, causal, bf16);
   (f) one JSON line of per-kernel results: K1 with its launches in (e)
       and times at --batch, K2 with its launches in (o)'s tiled call and
-      times at 256 roots, K3 in (i), K4 in (h), K5 in (l), K6 in (m), K7
-      in (n); every bound from ``repro_torch.launch.roofline`` (H100), every
-      library yardstick timed here and used nowhere in the port; the
+      (r1)'s wave and times at 256 roots, K3 in (i), K4 in (h), K5 in
+      (l), K6 in (m), K7 in (n); every bound from
+      ``repro_torch.launch.roofline`` (H100), every library yardstick
+      timed here and used nowhere in the port; the
       (l)-(n) rows also log the share of the bound and the ratio to the
       library time;
   (g) with --profile only: device time by kernel and the device's idle
-      share over one wave of each plan at --batch and over one
-      single-source root of (h) (torch.profiler).
+      share over one wave of each plan at --batch, over one
+      single-source root of (h) and over (r1)'s warm wave
+      (torch.profiler).
 
 Before the ``kernels`` line, one ``serving`` JSON line carries (p)'s and
-(q)'s numbers.  The last line of standard output is the result:
+(q)'s numbers and one ``distributed`` JSON line (r)'s.  The last line
+of standard output is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -932,11 +947,13 @@ def numpy_bfs(indptr: np.ndarray, indices: np.ndarray, root: int
             break
         first = np.cumsum(deg) - deg
         idx = np.repeat(starts - first, deg) + np.arange(total)
-        nbr = indices[idx]
-        nbr = np.unique(nbr[level[nbr] == INF])
+        fresh = np.zeros(level.shape[0], dtype=bool)
+        fresh[indices[idx]] = True
+        fresh &= level == INF
+        nbr = np.flatnonzero(fresh)
         d += 1
         level[nbr] = d
-        front = nbr.astype(np.int64)
+        front = nbr
     return level
 
 
@@ -1435,6 +1452,230 @@ def phase_chaos(ds, g, deg: np.ndarray, seed: int, dev) -> dict:
     return dict(supervisor=st, waves=per_wave, wall_seconds=round(wall, 4),
                 served=len(ok_roots), requests=len(futures),
                 deadline=CHAOS_DEADLINE, stall_seconds=CHAOS_STALL,
+                phase_seconds=phase_s)
+
+
+# -- (r) the distributed engine on one H100 ---------------------------------
+
+DIST_CONFIG = "scalabfs-32pc-64pe"   # the paper's peak configuration
+FIG10_PES = (1, 4, 16, 64)           # PEs on one card (Fig. 10's direction)
+FIG10_ROOTS = 8
+FIG10_QUEUE_CAPACITY = 1 << 18       # FIFO depth of (r2)'s queue run
+
+
+@contextlib.contextmanager
+def nccl_group():
+    """A one-rank NCCL group on cuda:0 (a file store in a temporary
+    directory, no network) and its ("data",) mesh of 1, destroyed after.
+    One all-reduce creates the communicator before anything is timed."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh((1,), ("data",))
+            one = torch.ones(1, device="cuda")
+            dist.all_reduce(one)
+            if float(one) != 1.0:
+                raise AssertionError("a one-rank all-reduce changed its "
+                                     "input")
+            yield mesh
+        finally:
+            dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def k2_per_step(eng, captured: dict):
+    """Record every call of the engine's batched push and pull steps in
+    order, as (kind, K2's launches in it), and keep the first K2 call's
+    inputs and outputs (cloned) for the check against the plain
+    version."""
+    steps = captured.setdefault("steps", [])
+
+    def counted(kind, step):
+        def call(*a, **kw):
+            before = kmod.LAUNCHES["msbfs_propagate_planes_tiled"]
+            out = step(*a, **kw)
+            steps.append((kind, kmod.LAUNCHES["msbfs_propagate_planes_tiled"]
+                          - before))
+            return out
+        return call
+
+    tiled = ops.msbfs_propagate_planes_tiled
+
+    def tiled_kept(seen, msg, tgt, ct, heads, tile_rows, block_edges,
+                   op="or"):
+        out = tiled(seen, msg, tgt, ct, heads, tile_rows, block_edges, op)
+        if "k2_call" not in captured:
+            captured["k2_call"] = (
+                [t.clone() for t in (seen, msg, tgt, ct, heads)],
+                tile_rows, block_edges, op, [t.clone() for t in out])
+        return out
+
+    eng._push_b = counted("push", eng._push_b)
+    eng._pull_b = counted("pull", eng._pull_b)
+    ops.msbfs_propagate_planes_tiled = tiled_kept
+    try:
+        yield
+    finally:
+        del eng._push_b, eng._pull_b
+        ops.msbfs_propagate_planes_tiled = tiled
+
+
+def dist_wave(ds, pg, mesh, roots: np.ndarray, want: np.ndarray,
+              deg: np.ndarray, dev, profile: bool) -> dict:
+    """(r1) One ``run_batch`` wave of the paper's peak configuration: every
+    plane validated, the rows equal to (d)'s, K2 on every pull level and
+    one of its calls equal to the plain version; then one warm wave,
+    whose rows must be the same (profiled with ``profile``)."""
+    from repro_torch.configs import CONFIGS
+    from repro_torch.core.bfs_distributed import (DistributedBFS,
+                                                  pull_tile_rows)
+    from repro_torch.core.bfs_local import count_traversed_edges
+    eng = DistributedBFS(pg, mesh, cfg=CONFIGS[DIST_CONFIG].dist_config())
+    if not eng.use_kernels:
+        raise AssertionError("the distributed engine on the card runs "
+                             "without its kernels")
+    captured: dict = {}
+    with k2_per_step(eng, captured):
+        reset_launches()
+        t0 = time.perf_counter()
+        rows = eng.run_batch(roots)
+        wave_s = time.perf_counter() - t0
+        counts = launches()
+    stats = dict(eng.last_stats)
+    level_s = [round(x, 4) for x in eng.last_level_seconds]
+    steps = captured["steps"]
+    per_pull = [n for kind, n in steps if kind == "pull"]
+    if len(per_pull) < stats["pull_iters"] or min(per_pull, default=0) < 1:
+        raise AssertionError(f"K2 did not launch on every pull level: "
+                             f"{steps} over {stats['pull_iters']} levels")
+    args, tile_rows, block_edges, op, got = captured["k2_call"]
+    want_k2 = ref.msbfs_propagate_planes_tiled_ref(*args[:4], tile_rows,
+                                                   block_edges, op=op)
+    err = assert_same(got, want_k2, "(r1) K2 on a pull level")
+    del captured, args, got, want_k2
+    t0 = time.perf_counter()
+    graph500_validate(ds, roots, rows, stats["iterations"], dev)
+    val_s = time.perf_counter() - t0
+    if not np.array_equal(rows, want):
+        raise AssertionError("(r1) the distributed wave's rows differ from "
+                             "(d)'s")
+    t0 = time.perf_counter()
+    again = eng.run_batch(roots)
+    warm_s = time.perf_counter() - t0
+    if not np.array_equal(again, rows):
+        raise AssertionError("(r1) a second wave's rows differ")
+    del again
+    nw = -(-roots.size // 32)
+    traversed = count_traversed_edges(deg, rows)
+    out = dict(config=DIST_CONFIG, shards=pg.num_shards, pes=eng.k,
+               verts_per_shard=eng.vl, wave_seconds=round(wave_s, 4),
+               level_seconds=round(sum(level_s), 4),
+               per_level_seconds=level_s, steps=steps,
+               aggregate_teps=traversed / wave_s,
+               warm_wave_seconds=round(warm_s, 4),
+               warm_level_seconds=round(sum(eng.last_level_seconds), 4),
+               warm_aggregate_teps=traversed / warm_s,
+               k2_launches=counts["msbfs_propagate_planes_tiled"],
+               tile_rows=pull_tile_rows(eng.vl, nw), k2_max_abs_err=err,
+               validate_seconds=round(val_s, 4), **stats)
+    log(f"(r1) {DIST_CONFIG}: {pg.num_shards} shards on one rank, "
+        f"{roots.size} roots: wave {wave_s:.4f}s, levels' seconds "
+        f"{out['level_seconds']} ({level_s}), aggregate TEPS "
+        f"{out['aggregate_teps']:.4e}, push/pull {stats['push_iters']}/"
+        f"{stats['pull_iters']}, steps (kind, K2 launches) {steps}, K2 "
+        f"launches {out['k2_launches']}, tile_rows {out['tile_rows']}; "
+        f"every plane validated ({val_s:.2f}s), rows equal (d)'s, one K2 "
+        f"call equal to its plain version; a warm wave {warm_s:.4f}s "
+        f"(levels {out['warm_level_seconds']}), TEPS "
+        f"{out['warm_aggregate_teps']:.4e}")
+    if profile:
+        profile_device(f"(r1) {DIST_CONFIG} warm wave",
+                       lambda: eng.run_batch(roots), top=16)
+    return out
+
+
+def dist_fig10(ds, pgs: dict, mesh, keys: np.ndarray, deg: np.ndarray,
+               dev) -> dict:
+    """(r2) Single-source ``run`` from Graph500 keys at k PEs on one card
+    (bitmap, flat), every root against the numpy BFS; then one queue run
+    at the most PEs.  Returns the median GTEPS per k."""
+    from repro_torch.core.bfs_distributed import DistConfig, DistributedBFS
+    from repro_torch.core.bfs_local import count_traversed_edges
+    t0 = time.perf_counter()
+    want = {int(r): numpy_bfs(ds.csr.indptr, ds.csr.indices, int(r))
+            for r in keys}
+    numpy_s = time.perf_counter() - t0
+    out = {}
+    for k, pg in pgs.items():
+        eng = DistributedBFS(pg, mesh, cfg=DistConfig(dispatch="bitmap",
+                                                      crossbar="flat"))
+        eng.run(int(keys[0]))                                # warm-up
+        gteps, secs = [], []
+        for r in keys:
+            t0 = time.perf_counter()
+            level = eng.run(int(r))
+            dt = time.perf_counter() - t0
+            if not np.array_equal(level, want[int(r)]):
+                raise AssertionError(f"(r2) k={k} root {r}: levels differ "
+                                     "from the numpy BFS")
+            secs.append(dt)
+            gteps.append(count_traversed_edges(deg, level) / dt / 1e9)
+        out[k] = dict(median_gteps=float(np.median(gteps)),
+                      median_seconds=float(np.median(secs)),
+                      iterations=eng.last_stats["iterations"])
+        log(f"(r2) k={k} PEs: median GTEPS {out[k]['median_gteps']:.4f} "
+            f"(seconds a root {out[k]['median_seconds']:.4f}); "
+            f"{len(keys)} roots equal the numpy BFS")
+    k = max(pgs)
+    eng = DistributedBFS(pgs[k], mesh, cfg=DistConfig(
+        dispatch="queue", crossbar="flat",
+        queue_capacity=FIG10_QUEUE_CAPACITY))
+    t0 = time.perf_counter()
+    level = eng.run(int(keys[0]))
+    dt = time.perf_counter() - t0
+    if not np.array_equal(level, want[int(keys[0])]):
+        raise AssertionError(f"(r2) queue dispatch at k={k}: levels differ "
+                             "from the numpy BFS")
+    log(f"(r2) queue dispatch at k={k} (FIFOs of {FIG10_QUEUE_CAPACITY}): "
+        f"root {keys[0]} in {dt:.4f}s equals the numpy BFS; the numpy BFS "
+        f"of {len(keys)} roots took {numpy_s:.2f}s")
+    return dict(by_pes={str(k): v for k, v in out.items()},
+                queue=dict(pes=k, seconds=round(dt, 4)),
+                numpy_seconds=round(numpy_s, 4))
+
+
+def phase_distributed(ds, deg: np.ndarray, roots: np.ndarray,
+                      want: np.ndarray, keys: np.ndarray, dev,
+                      profile: bool = False) -> dict:
+    """(r) The distributed engine in a one-rank NCCL group: (r1) the
+    paper's peak configuration's wave, (r2) Fig. 10's PE scaling."""
+    from repro_torch.configs import CONFIGS
+    from repro_torch.core import partition_graph
+    t_phase = time.perf_counter()
+    cfg = CONFIGS[DIST_CONFIG]
+    q = cfg.num_shards * cfg.pes_per_shard
+    t0 = time.perf_counter()
+    pgs = {k: partition_graph(ds.csr, ds.csc, k)
+           for k in sorted({*FIG10_PES, q})}
+    part_s = time.perf_counter() - t0
+    pq = pgs[q]
+    arrays = (pq.out_indptr, pq.out_indices, pq.in_indptr, pq.in_indices)
+    log(f"(r) partitioned {ds.spec.name} into {sorted(pgs)} shards in "
+        f"{part_s:.2f}s; at {q}: verts_per_shard {pq.verts_per_shard}, CSR "
+        f"{list(pq.out_indices.shape)} + CSC {list(pq.in_indices.shape)} "
+        f"int32 lists, {sum(a.nbytes for a in arrays) / 1e6:.1f} MB with "
+        "the int64 offsets")
+    with nccl_group() as mesh:
+        r1 = dist_wave(ds, pgs[q], mesh, roots, want, deg, dev, profile)
+        r2 = dist_fig10(ds, {k: pgs[k] for k in FIG10_PES}, mesh,
+                        keys[:FIG10_ROOTS], deg, dev)
+    phase_s = round(time.perf_counter() - t_phase, 4)
+    log(f"(r) took {phase_s:.2f}s")
+    return dict(r1=r1, r2=r2, partition_seconds=round(part_s, 4),
                 phase_seconds=phase_s)
 
 
@@ -1942,6 +2183,10 @@ def main(argv=None) -> int:
     # (p) supervised async serving; (q) chaos on the card
     serving = dict(p=phase_serve_async(ds, g, args.graph, args.seed, dev),
                    q=phase_chaos(ds, g, deg, args.seed, dev))
+
+    # (r) the distributed engine in a one-rank NCCL group
+    distributed = phase_distributed(ds, deg, wave_roots, d["levels"], keys,
+                                    dev, args.profile)
     for name in KERNELS:             # K1-K4: integer work, no library call
         if name in real:
             real[name].update(bound_by="bytes", library_ms=None)
@@ -1955,7 +2200,8 @@ def main(argv=None) -> int:
     counts = {
         "msbfs_propagate_planes": e["launches"]["msbfs_propagate_planes"],
         "msbfs_propagate_planes_tiled":
-            o["tiled"]["launches"]["msbfs_propagate_planes_tiled"],
+            o["tiled"]["launches"]["msbfs_propagate_planes_tiled"]
+            + distributed["r1"]["k2_launches"],
         "bitmap_update_batch": i["launches"]["bitmap_update_batch"],
         "bitmap_update": h["launches"]["bitmap_update"],
         **{k: real[k]["launches"] for k in ("gather_pages",
@@ -1990,6 +2236,7 @@ def main(argv=None) -> int:
     log(f"(f) total {time.perf_counter() - t_start:.1f}s")
     log(card)
     log(json.dumps({"serving": serving}))
+    log(json.dumps({"distributed": distributed}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,7 @@ from repro_torch.core.bfs_local import (INF, BFSEngine, BFSResult, BFSRunner,
                                         count_traversed_edges,
                                         engine_num_vertices, expand_edges,
                                         validate_roots)
+from repro_torch.core.partition import PartitionedGraph, partition_graph
 from repro_torch.core.scheduler import (PULL, PUSH, SchedulerConfig,
                                         choose_mode, choose_mode_host)
 from repro_torch.core.vertex_program import (BFS, CC, INTEGRITY_MODES,
@@ -24,7 +25,7 @@ __all__ = [
     "bitmap", "INF", "BFSEngine", "BFSResult", "BFSRunner", "LocalGraph",
     "bfs_oracle", "bfs_reference", "build_local_graph", "compact_indices",
     "count_traversed_edges", "engine_num_vertices", "expand_edges",
-    "validate_roots", "PULL", "PUSH", "SchedulerConfig", "choose_mode",
+    "validate_roots", "PartitionedGraph", "partition_graph", "PULL", "PUSH", "SchedulerConfig", "choose_mode",
     "choose_mode_host", "BFS", "CC", "SSSP", "PROGRAMS", "INTEGRITY_MODES",
     "SV_CHECK", "IntegrityError", "BudgetOverflowError",
     "MultiSourceBFSRunner", "VertexProgram", "VertexProgramResult",

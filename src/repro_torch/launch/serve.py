@@ -23,7 +23,10 @@ pool (``repro_torch.launch.pool``):
       --bfs-serve-async --bfs-requests 256 --bfs-max-batch 64 \
       --bfs-pipeline --ft-integrity audit [--bfs-rate 200] [--device cpu]
 
-The distributed engine is not ported yet.
+In a process group of more than one rank (``torch.distributed``, started
+by the caller), :func:`build_engine` serves from the distributed engine
+``core.bfs_distributed.DistributedBFS`` instead, every rank making the
+same calls.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import json
 import time
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.core.bfs_local import (INF, build_local_graph,
                                         count_traversed_edges)
@@ -45,24 +49,52 @@ RUNNERS = {"bfs": MultiSourceBFSRunner, "cc": ConnectedComponentsRunner,
 
 
 def build_engine(graph: str, *, algo: str = "bfs", device=None,
+                 distributed: bool | None = None, pes_per_device: int = 2,
                  tile_rows: int | None = None, sparse_pull: bool = False):
     """Build a vertex-program query engine with the graph resident on
     ``device`` (None = the CUDA card).
 
     ``algo``: "bfs" | "cc" | "sssp"; an unknown name raises ValueError.
     CC symmetrizes the graph first (components are an undirected notion).
+    ``distributed``: None means a process group of more than one rank is
+    initialised; then the engine is ``DistributedBFS`` carrying the
+    program over a ``("data",)`` mesh of every rank, the graph partitioned
+    into ``world * pes_per_device`` shards (2 PEs per PC by default, the
+    paper's Table II shape), every rank calling this with the same
+    arguments.  Otherwise the local runner for the program, where
     ``sparse_pull=True`` takes the budgeted pull on tail levels of the
-    plain path.  Returns (engine, out_degrees of the graph traversed).
-    Build once, reuse across ``bfs_batch`` calls."""
+    plain path and ``tile_rows`` picks the propagate kernel; the
+    distributed engine ignores both.  Returns (engine, out_degrees of the
+    graph traversed).  Build once, reuse across ``bfs_batch`` calls."""
     program = get_program(algo)
     ds = get_dataset(graph)
     csr, csc = ds.csr, ds.csc
     if program.undirected:
         csr = symmetrize_csr(csr)
         csc = csr            # a symmetrized graph is its own transpose
+    deg = np.diff(csr.indptr)
+    if distributed is None:
+        distributed = dist.is_initialized() and dist.get_world_size() > 1
+    if distributed:
+        from repro_torch.core.bfs_distributed import DistributedBFS
+        from repro_torch.core.partition import partition_graph
+        from repro_torch.launch.mesh import make_mesh
+        # make_mesh raises, saying how to start one, without a group
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        mesh = make_mesh((world,), ("data",), device=device)
+        pg = partition_graph(csr, csc, world * pes_per_device)
+        return DistributedBFS(pg, mesh, program=program), deg
     g = build_local_graph(csr, csc, device=device)
     engine = RUNNERS[algo](g, tile_rows=tile_rows, sparse_pull=sparse_pull)
-    return engine, np.diff(csr.indptr)
+    return engine, deg
+
+
+def build_bfs_engine(graph: str, *, distributed: bool | None = None,
+                     pes_per_device: int = 2, device=None):
+    """BFS-only wrapper around :func:`build_engine`."""
+    return build_engine(graph, algo="bfs", device=device,
+                        distributed=distributed,
+                        pes_per_device=pes_per_device)
 
 
 def bfs_batch(roots, *, graph: str = "rmat16-16", engine=None, out_deg=None,

@@ -773,3 +773,68 @@ def test_card_audit_of_a_boolplane_engine_returns(dev):
         st = sup.stats()["integrity"]
         assert st["audits"] == audits and st["audit_failures"] == 0
         assert runner.packed is packed and runner.use_kernels is True
+
+
+# -- the distributed engine on a one-rank NCCL group -------------------------
+
+def _dist_run(backend: str, store, device, **cfg):
+    """Start a one-rank group, run the distributed engine on small-12-8
+    (4 PEs) in it, destroy the group.  Returns (batch rows, batch stats,
+    single-source levels, single-source stats, engine)."""
+    import torch.distributed as dist
+    from repro_torch.core import partition_graph
+    from repro_torch.core.bfs_distributed import DistConfig, DistributedBFS
+    from repro_torch.graph import get_dataset
+    from repro_torch.launch.mesh import make_mesh
+    ds = get_dataset("small-12-8")
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1,), ("data",), device=device)
+        eng = DistributedBFS(partition_graph(ds.csr, ds.csc, 4), mesh,
+                             cfg=DistConfig(**cfg))
+        rows = eng.run_batch(np.asarray([7, 100, 2000, 4095, 7]))
+        batch_stats = dict(eng.last_stats)
+        single = eng.run(100)
+        return rows, batch_stats, single, dict(eng.last_stats), eng
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_distributed_one_rank_nccl_equals_cpu(dev, tmp_path, monkeypatch):
+    """One rank, NCCL on the card (K2 on every pull level) against the same
+    engine in a one-rank gloo group on the CPU (the plain path)."""
+    monkeypatch.setenv("REPRO_TORCH_GRAPH_CACHE", str(tmp_path / "graphs"))
+    want = _dist_run("gloo", tmp_path / "cpu", "cpu", use_kernels=False)
+    kmod.reset_launches()
+    got = _dist_run("nccl", tmp_path / "gpu", None)
+    launched = kmod.LAUNCHES["msbfs_propagate_planes_tiled"]
+    assert got[4].use_kernels and got[4].device.type == "cuda"
+    for g, w in zip(got[:4], want[:4]):
+        if isinstance(w, np.ndarray):
+            np.testing.assert_array_equal(g, w)
+        else:
+            assert g == w
+    assert launched >= got[1]["pull_iters"] > 0
+
+
+@pytest.mark.cuda
+def test_distributed_cuda_mesh_refuses_plain_path(dev, tmp_path):
+    import torch.distributed as dist
+    from repro_torch.core import partition_graph
+    from repro_torch.core.bfs_distributed import DistConfig, DistributedBFS
+    from repro_torch.launch.mesh import make_mesh
+    src, dst = np.random.default_rng(3).integers(0, 64, (2, 256))
+    csr = csr_from_edges(src, dst, 64)
+    pg = partition_graph(csr, transpose_csr(csr), 4)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1,), ("data",))
+        with pytest.raises(ValueError, match="use_kernels=False"):
+            DistributedBFS(pg, mesh, cfg=DistConfig(use_kernels=False))
+        with pytest.raises(ValueError, match="gloo"):
+            make_mesh((1,), ("data",), device="cpu")
+    finally:
+        dist.destroy_process_group()

@@ -7,8 +7,9 @@ injected fake clock and engines over the same graph (the reference's
 compares every future's row (bit for bit), error type, latency and SLO
 verdict, every wave record (less its wall-clock seconds) and the stats
 (less the busy and idle seconds and the TEPS read from them).  The
-reference tests' own assertions (``tests/test_dynbatch.py``, less its
-``DistributedBFS`` case, whose engine is not ported) run under both.  The
+reference tests' own assertions (``tests/test_dynbatch.py``) run under
+both, its ``DistributedBFS`` case too (the port's engine in a one-rank
+gloo group).  The
 real-clock threaded and pipelined cases compare rows only: their wave cuts
 follow the wall clock.  ``serve_bfs_async`` closes the file.
 """
@@ -33,6 +34,9 @@ from repro.graph import csr_from_edges as j_csr_from_edges  # noqa: E402
 from repro.graph import transpose_csr as j_transpose_csr   # noqa: E402
 from repro.graph import uniform_edges as j_uniform_edges   # noqa: E402
 from repro.launch import serve as jserve                   # noqa: E402
+from repro.compat import make_mesh as j_make_mesh          # noqa: E402
+from repro.core import partition_graph as j_partition_graph  # noqa: E402
+import repro.core.bfs_distributed as jbd                   # noqa: E402
 import repro_torch.ft as tft                               # noqa: E402
 import repro_torch.launch.dynbatch as tdyn                 # noqa: E402
 from repro_torch.core import MultiSourceBFSRunner as TMS   # noqa: E402
@@ -40,6 +44,11 @@ from repro_torch.core import bitmap as tbitmap             # noqa: E402
 from repro_torch.core import count_traversed_edges as t_count  # noqa: E402
 from repro_torch.interop import local_graph_from_numpy     # noqa: E402
 from repro_torch.launch import serve as tserve             # noqa: E402
+from repro_torch.core import partition_graph as t_partition_graph  # noqa: E402
+import repro_torch.core.bfs_distributed as tbd            # noqa: E402
+from repro_torch.graph import csr_from_edges as t_csr_from_edges  # noqa: E402
+from repro_torch.graph import transpose_csr as t_transpose_csr  # noqa: E402
+from repro_torch.launch.mesh import make_mesh as t_make_mesh  # noqa: E402
 
 N = 256
 WALL_STATS = ("busy_seconds", "engine_idle_seconds", "aggregate_teps")
@@ -1039,6 +1048,44 @@ def test_drive_open_loop_closed_and_poisson(graph):
                         for f in futures])
         return out
     both(graph, scenario)
+
+
+def test_distributed_engine_behind_batcher(tmp_path):
+    """The reference's case: a ``DistributedBFS`` of 4 PEs on a one-device
+    mesh behind the batcher (the port's in a one-rank gloo group)."""
+    import torch.distributed as dist
+    src, dst = j_uniform_edges(64, 256, seed=3)
+    jcsr = j_csr_from_edges(src, dst, 64)
+    tcsr = t_csr_from_edges(src, dst, 64)
+    deg = np.diff(jcsr.indptr)
+    roots = [0, 13, 63]
+
+    def scenario(P):
+        b = P.dyn.DynamicBatcher(P.engine(), out_deg=deg, window=0.01,
+                                 clock=FakeClock())
+        futures = [b.submit(r, block=False) for r in roots]
+        waves = b.flush()
+        assert len(waves) == 1 and waves[0].n_slots == 32
+        assert waves[0].traversed_edges > 0
+        for f, r in zip(futures, roots):
+            np.testing.assert_array_equal(np.asarray(f.result(), np.int64),
+                                          bfs_oracle(jcsr, r))
+        b.close()
+        return [fut(f) for f in futures], ws(waves[0])
+
+    ref = SimpleNamespace(dyn=jdyn, engine=lambda: jbd.DistributedBFS(
+        j_partition_graph(jcsr, j_transpose_csr(jcsr), 4),
+        j_make_mesh((1,), ("data",)), cfg=jbd.DistConfig(dispatch="bitmap")))
+    port = SimpleNamespace(dyn=tdyn, engine=lambda: tbd.DistributedBFS(
+        t_partition_graph(tcsr, t_transpose_csr(tcsr), 4),
+        t_make_mesh((1,), ("data",), device="cpu"),
+        cfg=tbd.DistConfig(dispatch="bitmap")))
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        assert scenario(ref) == scenario(port)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_serve_bfs_async_matches_reference():

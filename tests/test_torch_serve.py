@@ -74,6 +74,63 @@ def test_roots_validated(graph_cache):
         assert eng.program.name == algo
 
 
+@pytest.fixture
+def one_rank(tmp_path):
+    """A one-rank gloo group, destroyed after."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("algo", ["bfs", "cc"])
+def test_distributed_engine_matches_local_runner(graph_cache, one_rank,
+                                                 algo):
+    """``build_engine(distributed=True)`` in a one-rank group: the
+    distributed engine over 2 shards (2 PEs per PC), whose rows equal the
+    local runner's and whose stats equal the reference's distributed
+    engine's; ``distributed=None`` with one rank builds the local runner."""
+    from repro_torch.core.bfs_distributed import DistributedBFS
+    roots = np.asarray([0, 5, 5, 100, 4095, 17])
+    engine, deg = serve.build_engine(GRAPH, algo=algo, distributed=True,
+                                     device="cpu")
+    assert isinstance(engine, DistributedBFS)
+    assert (engine.q, engine.k, engine.program.name) == (2, 2, algo)
+    local, deg_local = serve.build_engine(GRAPH, algo=algo, device="cpu")
+    assert not isinstance(local, DistributedBFS)
+    np.testing.assert_array_equal(deg, deg_local)
+    got = serve.bfs_batch(roots, engine=engine, out_deg=deg)
+    want = serve.bfs_batch(roots, engine=local, out_deg=deg)
+    np.testing.assert_array_equal(got["levels"], want["levels"])
+    assert got["traversed_edges"] == want["traversed_edges"]
+    jeng, jdeg = jserve.build_engine(GRAPH, algo=algo, distributed=True)
+    ref = jserve.bfs_batch(roots, engine=jeng, out_deg=jdeg)
+    np.testing.assert_array_equal(got["levels"], ref["levels"])
+    for k in ("iterations", "push_iters", "pull_iters", "edges_inspected",
+              "traversed_edges", "batch", "algo"):
+        assert got[k] == ref[k], k
+
+
+def test_build_bfs_engine_matches_reference(graph_cache, one_rank):
+    engine, deg = serve.build_bfs_engine(GRAPH, distributed=True,
+                                         pes_per_device=4, device="cpu")
+    jeng, jdeg = jserve.build_bfs_engine(GRAPH, distributed=True,
+                                         pes_per_device=4)
+    assert engine.q == jeng.q == 4
+    np.testing.assert_array_equal(deg, jdeg)
+    np.testing.assert_array_equal(engine.run_batch([3, 9]),
+                                  jeng.run_batch([3, 9]))
+    assert engine.last_stats == jeng.last_stats
+
+
+def test_distributed_engine_needs_a_process_group(graph_cache):
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        serve.build_engine(GRAPH, distributed=True, device="cpu")
+
+
 def test_cli_prints_one_json_line(graph_cache, capsys):
     serve.main(["--bfs-graph", GRAPH, "--bfs-batch", "8", "--device", "cpu"])
     lines = capsys.readouterr().out.strip().splitlines()
