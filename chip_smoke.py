@@ -100,6 +100,22 @@ them.  Phases, each failing the run on any error:
       CUDA cores) within its stated tolerance: adversarial dtypes, head
       dims, lengths and blocks, then llama3-8b's attention (32 heads,
       head dim 128, S = 8192, causal, bf16);
+  (s) the step analysis, the dry-run and the analytic model: (s1) (d)'s
+      wave (its roots, ``MultiSourceBFSRunner``) and one (h) root counted
+      by ``launch.step_analysis.StepAnalysis`` on the card: FLOPs, bytes,
+      collective bytes and the roofline bound beside (d)'s measured wave
+      and levels' seconds, level by level; the K1 and K4 calls counted as
+      often as ``LAUNCHES`` counts their launches, K1's bytes equal to
+      ``k1_bytes`` of its calls, and every count equal to the CPU's for
+      the same wave and root (``use_kernels=True``); (s2) ``python -m
+      repro_torch.launch.dryrun --all`` on the card, while the CPU counts:
+      the eight BFS cells (rmat22-16 bitmap/staged, bitmap/flat,
+      queue/staged, rmat23-64 and lj-like bitmap/staged on the 16x16 mesh;
+      the three bitmap/staged on 2x16x16) each record one push and one
+      pull step of one rank of a fake 256- or 512-rank group, their shard
+      fields the reference's arithmetic, each step's peak bytes logged
+      against the card's memory; (s3) ``perf_model.h100_model_teps(1,
+      len_nl)`` at --graph's mean degree beside (d)'s TEPS;
   (f) one JSON line of per-kernel results: K1 with its launches in (e)
       and times at --batch, K2 with its launches in (o)'s tiled call and
       (r1)'s wave and times at 256 roots, K3 in (i), K4 in (h), K5 in
@@ -114,7 +130,8 @@ them.  Phases, each failing the run on any error:
       (torch.profiler).
 
 Before the ``kernels`` line, one ``serving`` JSON line carries (p)'s and
-(q)'s numbers and one ``distributed`` JSON line (r)'s.  The last line
+(q)'s numbers, one ``distributed`` JSON line (r)'s and one ``analysis``
+JSON line (s)'s.  The last line
 of standard output is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -124,15 +141,19 @@ import argparse
 import contextlib
 import ctypes
 import json
+import os
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+SRC = str(Path(__file__).resolve().parent / "src")
+sys.path.insert(0, SRC)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -142,15 +163,19 @@ from repro_torch.core.bfs_local import (INF, BFSRunner,  # noqa: E402
 from repro_torch.core.vertex_program import (IntegrityError,  # noqa: E402
                                              MultiSourceBFSRunner,
                                              component_labels)
+from repro_torch.core.perf_model import h100_model_teps  # noqa: E402
 from repro_torch.graph import edge_sources, get_dataset  # noqa: E402
+from repro_torch.graph.datasets import DATASETS  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import bitmap_update as kbu  # noqa: E402
 from repro_torch.kernels import csr_gather as kcg  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import msbfs_propagate as kmod  # noqa: E402
 from repro_torch.kernels import pull_spmv as kps  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.roofline import H100, roofline_terms  # noqa: E402
 from repro_torch.launch.serve import serve_bfs, serve_bfs_async  # noqa: E402
+from repro_torch.launch.step_analysis import StepAnalysis  # noqa: E402
 
 # kernel name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -568,32 +593,25 @@ def bound(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
 
 
 def k1_bytes(frontier, src, tgt, valid, n_edges) -> tuple[int, dict]:
-    """K1's bound in bytes: what this level's data makes it move, each
-    input read once and each output written once.  The src and valid bytes
-    of each slot below n_edges, the tgt of each real edge whose message is
-    not zero, each distinct frontier row the real edges read, seen, the
-    two outputs new and seen_out, and the count.  Also, for the log: a
-    work estimate that counts the nw frontier words of every real edge, a
-    read-modify-write of the candidate words of every non-zero message
-    and the accumulator's zeroing, as if nothing stayed in L2 or merged in
-    a warp (it exceeds K1's time at B = 256); the first design's padded
-    bound (its whole padded edge list and four plane arrays with the
-    trash row); and the slot counts."""
+    """K1's bound in bytes: what this level's data makes it move
+    (``kmod.propagate_traffic``, the count K1 reports to the step
+    analysis).  Also, for the log: a work estimate that counts the nw
+    frontier words of every real edge, a read-modify-write of the
+    candidate words of every non-zero message and the accumulator's
+    zeroing, as if nothing stayed in L2 or merged in a warp (it exceeds
+    K1's time at B = 256); the first design's padded bound (its whole
+    padded edge list and four plane arrays with the trash row); and the
+    slot counts."""
     n, nw = frontier.shape
     m = int(src.shape[0])
-    slots = m if n_edges is None else min(max(int(n_edges), 0), m)
-    ok = ops._edge_ok(valid, src, tgt, n)[:slots]
-    s64 = src[:slots].to(torch.int64).clamp(0, n - 1)
-    live_ok = ok & (frontier[s64] != 0).any(1)
-    real, live = int(ok.sum()), int(live_ok.sum())
-    rows = int(torch.unique(s64[ok]).numel())
-    words = n * nw
-    b = slots * 5 + live * 4 + rows * nw * 4 + 3 * words * 4 + 4
-    work = (slots * 9 + real * nw * 4 + live * nw * 8 + 5 * words * 4 + 4)
+    t = kmod.propagate_traffic(frontier, src, tgt, valid, n_edges)
+    work = (t["slots"] * 9 + t["real"] * nw * 4 + t["live"] * nw * 8
+            + 5 * n * nw * 4 + 4)
     be = ops._auto_block_edges(m, nw)
     padded = 4 * (n + 1) * nw * 4 + 2 * (-(-m // be) * be) * 4 + 4
-    return b, dict(slots=slots, real=real, live=live, rows=rows,
-                   work_ms=bound(work)[0], padded_bound_ms=bound(padded)[0])
+    return t["bytes"], dict(
+        slots=t["slots"], real=t["real"], live=t["live"], rows=t["rows"],
+        work_ms=bound(work)[0], padded_bound_ms=bound(padded)[0])
 
 
 def phase_real(g, deg: np.ndarray, graph: str, batch: int, seed: int
@@ -605,9 +623,9 @@ def phase_real(g, deg: np.ndarray, graph: str, batch: int, seed: int
     with ``tile_rows=0`` on the level's inputs as they stand, wrapper
     included) and alone (:func:`k1_alone`); its bound counts the work the
     level needs (:func:`k1_bytes`), the first design's padded bound logged
-    beside it.  K2's bound counts the bytes its real edges need (the
-    message of each valid slot, and the target of each valid slot whose
-    message is not zero) and its three plane arrays."""
+    beside it.  K2's bound (``kmod.tiled_traffic``) counts the message
+    of each slot of the tiles' head chunks, the target of each slot whose
+    message is not zero, and its three plane arrays."""
     roots = np.random.default_rng(seed).choice(np.flatnonzero(deg > 0),
                                                batch, replace=False)
     calls = capture_levels(g, roots)
@@ -632,7 +650,6 @@ def phase_real(g, deg: np.ndarray, graph: str, batch: int, seed: int
                         f"ops tile_rows=0 {what} [{op}]")
         e2 = max(check_k2(k2, tr, be, op, what) for op in ("or", "max"))
         (s2, sm, st, ct), heads = k2
-        live2 = int((sm != 0).any(1).sum())     # valid, message not zero
         pad = int(ct.shape[0]) - int(heads.sum())
         # the tiled path's feed: the bucket count alone (searchsorted on
         # the sorted tile keys), and the whole bucketing with its gather
@@ -643,7 +660,7 @@ def phase_real(g, deg: np.ndarray, graph: str, batch: int, seed: int
         feed_ms = time_ms(lambda: tiled_inputs(frontier, seen, src, tgt,
                                                valid, tr, be), 2)
         b1, sl = k1_bytes(frontier, src, tgt, valid, ne)
-        b2 = sl["real"] * nw * 4 + live2 * 4 + 3 * s2.numel() * 4 + 4
+        b2 = kmod.tiled_traffic(s2, sm, heads, be)
         r1 = dict(bytes=b1, bound_ms=bound(b1)[0], max_abs_err=e1,
                   work_ms=sl["work_ms"],
                   padded_bound_ms=sl["padded_bound_ms"],
@@ -849,8 +866,7 @@ def phase_p3_real(g, keys: np.ndarray, roots: np.ndarray) -> dict:
         rows = []
         for lvl, (c, v) in enumerate(calls):
             e = check_p3(kern, plain, c, v, f"{name} level {lvl}")
-            nbytes = 4 * c.numel() * 4 + 4 * (c.shape[0] if c.dim() == 2
-                                              else 1)
+            nbytes = kbu.p3_bytes(c)
             row = dict(max_abs_err=e, bytes=nbytes, bound_ms=bound(nbytes)[0],
                        plain_ms=time_ms(lambda: plain(c, v), 3))
             if c.dim() == 1:
@@ -1679,6 +1695,240 @@ def phase_distributed(ds, deg: np.ndarray, roots: np.ndarray,
                 phase_seconds=phase_s)
 
 
+# -- (s) step analysis, the dry-run and the analytic model -----------------
+
+DRYRUN_TIMEOUT = 600             # seconds (s2)'s eight cells may take in all
+# (s2)'s cells at a time: a cell's process spends most of its time
+# importing torch and its lazy modules and reaching the card, not on the
+# card, so four at a time share the host's cores with (s1)'s CPU wave
+DRYRUN_JOBS = 4
+
+
+def counted(run):
+    """``run()`` under a ``StepAnalysis``: (its result, the analysis)."""
+    with StepAnalysis() as a:
+        out = run()
+    return out, a
+
+
+def same_counts(card, cpu, what: str) -> None:
+    if card.result() != cpu.result() or card.kernels != cpu.kernels:
+        raise AssertionError(
+            f"(s1) {what}: the card counts {card.result()} {card.kernels}, "
+            f"the CPU {cpu.result()} {cpu.kernels}")
+
+
+def counted_calls(a, counts: dict, what: str) -> None:
+    """Every kernel the run launched was reported as often as it
+    launched, and nothing else was."""
+    for name in set(counts) | set(a.kernels):
+        n = a.kernels.get(name, {}).get("calls", 0)
+        if n != counts.get(name, 0):
+            raise AssertionError(f"(s1) {what}: {name} counted {n} calls, "
+                                 f"launched {counts.get(name, 0)} times")
+
+
+def per_step_counts(a) -> tuple[list, object]:
+    """A list that gets, for every packed step the engine takes while
+    ``a`` counts, (level, push?, the step's bytes), and a restore
+    function: wraps ``vertex_program``'s two step functions."""
+    from repro_torch.core import vertex_program as vp
+    rows, saved = [], (vp.vp_push_step, vp.vp_pull_step)
+
+    def wrap(step, push):
+        def spy(*args):
+            before = a.bytes
+            out = step(*args)
+            rows.append((int(args[4]), push, a.bytes - before))
+            return out
+        return spy
+
+    vp.vp_push_step, vp.vp_pull_step = wrap(saved[0], True), wrap(saved[1],
+                                                                  False)
+
+    def restore():
+        vp.vp_push_step, vp.vp_pull_step = saved
+    return rows, restore
+
+
+def start_dryrun(out_dir: str) -> subprocess.Popen:
+    """(s2) ``python -m repro_torch.launch.dryrun --all`` on the card, in a
+    process group of its own, so that stopping it stops every cell."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--jobs", str(DRYRUN_JOBS), "--out", out_dir], env=env,
+        stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+
+
+def check_dryrun(proc: subprocess.Popen, out_dir: str) -> list:
+    """(s2)'s result: every cell recorded, its shard fields equal to the
+    reference's arithmetic (``repro.core.bfs_distributed.abstract``), its
+    steps counted; each step's peak bytes logged against the card's
+    memory."""
+    try:
+        out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"(s2) the dry-run took over {DRYRUN_TIMEOUT} s")
+    for line in out.strip().splitlines():
+        log(f"(s2) {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"(s2) the dry-run failed ({proc.returncode})")
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    rows = []
+    for path, args in dryrun.all_cells(out_dir):
+        rec = json.loads(Path(path).read_text())
+        spec = DATASETS[args[1]]
+        n = 1 << spec.scale
+        q = 512 if "--multi-pod" in args else 256
+        vl = -(-(-(-n // q)) // 32) * 32
+        e = int(vl * spec.edge_factor * (1 if spec.directed else 2))
+        want = dict(num_vertices=n, shards=q, verts_per_shard=vl,
+                    edge_budget=max(-(-e // 128) * 128, 128), n_devices=q,
+                    device=torch.cuda.get_device_name(0))
+        got = {k: rec[k] for k in want}
+        if got != want:
+            raise AssertionError(f"(s2) {Path(path).name}: {got} != {want}")
+        for phase in ("push", "pull"):
+            p = rec[phase]
+            peak = p["memory"]["peak_bytes"]
+            if not (peak and p["per_device"]["bytes"] > 0):
+                raise AssertionError(f"(s2) {Path(path).name} {phase}: "
+                                     f"peak {peak}, {p['per_device']}")
+            rows.append(dict(cell=Path(path).stem, phase=phase,
+                             step_s=p["step_s"], peak_bytes=peak,
+                             bytes=p["per_device"]["bytes"],
+                             collective_by_op=p["per_device"][
+                                 "collective_by_op"],
+                             bound_s=p["roofline"]["bound_s"]))
+            log(f"(s2) {Path(path).stem} {phase}: setup_s="
+                f"{rec['setup_s']:.2f} shards={q} vl={vl} "
+                f"edge_budget={want['edge_budget']} step_s={p['step_s']:.5f}"
+                f" peak={peak} bytes ({peak / card_bytes:.5f} of the card's "
+                f"{card_bytes}) counted bytes={p['per_device']['bytes']:.0f} "
+                f"collectives={p['per_device']['collective_by_op']} bound_s="
+                f"{p['roofline']['bound_s']:.3e}")
+    return rows
+
+
+def phase_analysis(ds, g, deg: np.ndarray, d: dict,
+                   keys: np.ndarray) -> dict:
+    """(s1) (d)'s wave and one (h) root counted on the card and on the
+    CPU, (s2) the dry-run's eight cells, (s3) the analytic model."""
+    t_phase = time.perf_counter()
+    roots, root = d["roots"], int(keys[0])
+    k1_calls = []
+    orig = ops.msbfs_propagate_planes
+
+    def spy(*args, **kw):
+        k1_calls.append((args, kw))
+        return orig(*args, **kw)
+
+    # (s1) the card: the wave, each packed step's bytes, its K1 calls
+    with StepAnalysis() as wave:
+        steps, restore = per_step_counts(wave)
+        ops.msbfs_propagate_planes = spy
+        reset_launches()
+        try:
+            res = MultiSourceBFSRunner(g).run(roots)
+        finally:
+            ops.msbfs_propagate_planes = orig
+            restore()
+        wave_counts = launches()
+    counted_calls(wave, wave_counts, "wave")
+    if not np.array_equal(res.levels, d["levels"]):
+        raise AssertionError("(s1) the counted wave's levels differ from (d)")
+    k1_sum = sum(k1_bytes(a[0], a[2], a[3], kw["valid"], kw["n_edges"])[0]
+                 for a, kw in k1_calls)
+    if wave.kernels["msbfs_propagate_planes"]["bytes"] != k1_sum:
+        raise AssertionError(f"(s1) K1 counted {wave.kernels} bytes, "
+                             f"k1_bytes {k1_sum}")
+    del k1_calls
+    runner = BFSRunner(g)
+    runner.run(root)                                    # warm-up
+    root_s = runner.run(root).seconds
+    reset_launches()
+    _, one = counted(lambda: runner.run(root))
+    counted_calls(one, launches(), "root")
+
+    # (s2) the dry-run runs on the card while the CPU counts
+    with tempfile.TemporaryDirectory() as out_dir:
+        proc = start_dryrun(out_dir)
+        try:
+            t0 = time.perf_counter()
+            g_cpu = build_local_graph(ds.csr, ds.csc, device="cpu")
+            _, cpu_wave = counted(lambda: MultiSourceBFSRunner(
+                g_cpu, use_kernels=True).run(roots))
+            cpu_runner = BFSRunner(g_cpu, use_kernels=True)
+            _, cpu_one = counted(lambda: cpu_runner.run(root))
+            cpu_s = time.perf_counter() - t0
+            del g_cpu, cpu_runner
+            same_counts(wave, cpu_wave, "the wave")
+            same_counts(one, cpu_one, "the root")
+            cells = check_dryrun(proc, out_dir)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+
+    out = d["out"]
+    lv = out["level_seconds"]
+    w = roofline_terms(wave.result())
+    r = roofline_terms(one.result())
+    by_level = {}
+    for lvl, push, nbytes in steps:
+        row = by_level.setdefault(lvl, dict(push=push, bytes=0.0))
+        row["bytes"] += nbytes
+    if len(by_level) != len(lv):
+        raise AssertionError(f"(s1) {len(by_level)} counted levels, (d) "
+                             f"timed {len(lv)}")
+    levels = []
+    for lvl, row in sorted(by_level.items()):
+        b_ms = bound(row["bytes"])[0]
+        levels.append(dict(level=lvl, mode="push" if row["push"] else "pull",
+                           bytes=row["bytes"], bound_ms=b_ms,
+                           measured_ms=lv[lvl] * 1e3,
+                           share=b_ms / (lv[lvl] * 1e3)))
+        log(f"(s1) level {lvl} ({levels[-1]['mode']}): counted bytes="
+            f"{row['bytes']:.0f} bound_ms={b_ms:.4f} (d)'s level ms="
+            f"{lv[lvl] * 1e3:.4f} share of bound={levels[-1]['share']:.4f}")
+    log(f"(s1) (d)'s wave ({len(roots)} roots, {res.iterations} levels) "
+        f"counted on the card: flops={wave.flops:.0f} "
+        f"bytes={wave.bytes:.0f} collective_bytes={wave.collective_bytes:.0f}"
+        f" kernels={wave.kernels}; bound {w['bound_s'] * 1e3:.4f} ms "
+        f"({w['dominant']}); (d) measured wave {out['seconds']:.4f} s, "
+        f"levels {sum(lv):.4f} s: the levels reach "
+        f"{w['bound_s'] / sum(lv):.4f} of the bound, the wave "
+        f"{w['bound_s'] / out['seconds']:.4f}")
+    log(f"(s1) one (h) root {root} counted: bytes={one.bytes:.0f} kernels="
+        f"{one.kernels}; bound {r['bound_s'] * 1e3:.4f} ms, measured "
+        f"{root_s:.5f} s: share {r['bound_s'] / root_s:.4f}")
+    log(f"(s1) K1 and K4 counted as launched ({wave_counts}), K1's bytes "
+        f"equal k1_bytes ({k1_sum}); the CPU's counts of the same wave and "
+        f"root (use_kernels=True, {cpu_s:.2f}s) equal the card's")
+    len_nl = ds.csr.indices.size / ds.csr.num_vertices
+    model = h100_model_teps(1, len_nl)
+    log(f"(s3) h100_model_teps(1, len_nl={len_nl:.4f}) = {model:.4e} TEPS; "
+        f"(d) measured {out['aggregate_teps']:.4e} "
+        f"({out['aggregate_teps'] / model:.4f} of the model)")
+    phase_s = time.perf_counter() - t_phase
+    log(f"(s) took {phase_s:.2f}s")
+    return dict(
+        wave=dict(per_device=wave.result(), kernels=wave.kernels,
+                  bound_s=w["bound_s"], seconds=out["seconds"],
+                  level_seconds=sum(lv), levels=levels),
+        root=dict(root=root, per_device=one.result(), kernels=one.kernels,
+                  bound_s=r["bound_s"], seconds=root_s),
+        cpu_seconds=cpu_s, dryrun=cells,
+        model=dict(len_nl=len_nl, h100_model_teps=model,
+                   measured_teps=out["aggregate_teps"]),
+        phase_seconds=phase_s)
+
+
 # -- (l) the paged CSR gather K5 ---------------------------------------------
 
 GATHER_PAGE = 128                # the real size's page (512 bytes)
@@ -1779,13 +2029,13 @@ def phase_gather(ds, level0: np.ndarray, dev) -> dict:
         if not np.array_equal(got[first: first + deg[j]], want):
             raise AssertionError(f"K5: vertex {vs[j]}'s neighbour list "
                                  "differs from the CSR")
-    # short lists share pages, so the bytes that must be read are the
-    # distinct pages once; every item's page is written once
+    # short lists share pages: the bound (kcg.gather_bytes) reads the
+    # distinct pages once and writes every item's page once
     m, distinct = need, int(np.unique(pids).size)
     r = time_row(lambda: kcg.gather_pages(paged, pids_d),
                  lambda: ref.gather_pages_ref(paged, pids_d),
                  lambda: paged.index_select(0, pids_d),
-                 (distinct + m) * page * 4 + m * 4, 0.0, 0, 10)
+                 kcg.gather_bytes(paged, pids_d), 0.0, 0, 10)
     r["launches"] = count
     log(f"(l) level {lvl} of root 0: {vs.size} vertices, {m} pages of "
         f"{page} ({distinct} distinct; build_page_table {t_table:.3f}s), "
@@ -1922,14 +2172,11 @@ def phase_spmv(ds, d_levels: np.ndarray, dev) -> dict:
         f"{float(want.max()):.0f}")
     lib, what = bsr_library(blocks, brow, bcol, f, rb)
     log(f"(m) library yardstick: {what}")
-    b = HUB_BLOCK
-    nbytes = (nb * b * b * 2 + rb * b * lanes * 2 + rb * b * lanes * 4
-              + 2 * nb * 4)
     r = time_row(lambda: kps.pull_spmv_blocks(blocks, brow, bcol, None, f,
                                               rb),
                  lambda: ref.pull_spmv_blocks_ref(blocks, brow, bcol, None,
                                                   f, rb),
-                 lib, nbytes, 2.0 * nb * b * b * lanes, 0, 10)
+                 lib, *kps.spmv_cost(blocks, f, rb), 0, 10)
     r["launches"] = count
     log_row("pull_spmv_blocks", r, "m")
     return r
@@ -2037,8 +2284,7 @@ def phase_flash(seed: int, dev) -> dict:
                                              block_q=128, block_k=128),
                  lambda: ref.flash_attention_ref(q, k, v, causal=True),
                  lambda: sdpa(q4, k4, v4, is_causal=True),
-                 4 * bh * s * hd * 2, 4.0 * bh * s * s * hd / 2,
-                 e["max_abs"], 3)
+                 *kfa.attention_cost(q, True), e["max_abs"], 3)
     torch.cuda.empty_cache()
     r["launches"] = count
     r["tol_ok"] = flash_ok(e)
@@ -2187,6 +2433,8 @@ def main(argv=None) -> int:
     # (r) the distributed engine in a one-rank NCCL group
     distributed = phase_distributed(ds, deg, wave_roots, d["levels"], keys,
                                     dev, args.profile)
+    # (s) the step analysis, the dry-run and the analytic model
+    analysis = phase_analysis(ds, g, deg, d, keys)
     for name in KERNELS:             # K1-K4: integer work, no library call
         if name in real:
             real[name].update(bound_by="bytes", library_ms=None)
@@ -2237,6 +2485,7 @@ def main(argv=None) -> int:
     log(card)
     log(json.dumps({"serving": serving}))
     log(json.dumps({"distributed": distributed}))
+    log(json.dumps({"analysis": analysis}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

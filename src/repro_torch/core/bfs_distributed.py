@@ -31,9 +31,9 @@ The batched pull runs through the row-tiled propagate kernel K2
 (``kernels.ops.msbfs_propagate_msgs``) under ``use_kernels``; the push's
 local scatter is the plain ``bitmap._scatter_or_rows``, as the
 reference's is jnp.  Every rank returns the whole value rows (the
-reference's one controller sees the whole array).  The reference's
-``abstract()`` / ``abstract_inputs()`` exist only to lower its dry-run and
-are not ported.
+reference's one controller sees the whole array).  ``abstract()`` /
+``abstract_inputs()`` build the graph-less engine of the dry-run
+(``launch.dryrun``), one rank of the production mesh.
 """
 from __future__ import annotations
 
@@ -172,32 +172,16 @@ class DistributedBFS:
                  program: VertexProgram = BFS):
         self.pg = pg
         self.program = program
-        self.mesh = mesh
-        self.axes = tuple(axis_names or mesh.mesh_dim_names)
-        self.axis_sizes = tuple(axis_size(mesh, a) for a in self.axes)
-        self.cfg = cfg or DistConfig()
+        self._bind_mesh(mesh, axis_names, cfg)
         q = pg.num_shards
-        d = int(np.prod(self.axis_sizes))
-        if q % d:
-            raise ValueError(f"shards {q} not a multiple of mesh size {d}")
-        self.d = d
-        self.k = q // d          # shards (PEs) per rank (PC)
+        if q % self.d:
+            raise ValueError(f"shards {q} not a multiple of mesh size "
+                             f"{self.d}")
+        self.k = q // self.d     # shards (PEs) per rank (PC)
         self.q = q
         self.vl = pg.verts_per_shard          # local vertices per shard
         self.wl = self.vl // bitmap.WORD_BITS  # local bitmap words
         self.n_pad = pg.num_vertices_padded
-        self.device = mesh_device(mesh)
-        on_cuda = self.device.type == "cuda"
-        use = self.cfg.use_kernels
-        if on_cuda and use is not None and not use:
-            raise ValueError("use_kernels=False is a CPU path only; a mesh "
-                             "on CUDA runs the kernels")
-        self.use_kernels = on_cuda if use is None else bool(use)
-        # collectives: the flattened axes (psum, all_gather, the full
-        # crossbar, queue FIFOs) and one group per axis (staged crossbar)
-        self._group = axes_group(mesh, self.axes)
-        self._axis_groups = tuple(mesh.get_group(a) for a in self.axes)
-        self.sidx = flat_axis_index(mesh, self.axes)
         own = slice(self.sidx * self.k, (self.sidx + 1) * self.k)
         put = lambda x: torch.from_numpy(  # noqa: E731
             np.ascontiguousarray(x[own])).to(self.device)
@@ -218,8 +202,78 @@ class DistributedBFS:
         self._orig_pos = torch.from_numpy(pos).to(self.device)
         # original-order degrees for the engine protocol (per-wave TEPS)
         self._out_deg_np = out_deg_r.reshape(-1)[pos].astype(np.int64)
+
+    def _bind_mesh(self, mesh, axis_names, cfg) -> None:
+        """What construction and :meth:`abstract` share: the mesh's axes
+        and its ``d`` ranks, the device, the kernel choice and the
+        collectives' groups."""
+        self.mesh = mesh
+        self.axes = tuple(axis_names or mesh.mesh_dim_names)
+        self.axis_sizes = tuple(axis_size(mesh, a) for a in self.axes)
+        self.cfg = cfg or DistConfig()
+        self.d = int(np.prod(self.axis_sizes))
+        self.device = mesh_device(mesh)
+        on_cuda = self.device.type == "cuda"
+        use = self.cfg.use_kernels
+        if on_cuda and use is not None and not use:
+            raise ValueError("use_kernels=False is a CPU path only; a mesh "
+                             "on CUDA runs the kernels")
+        self.use_kernels = on_cuda if use is None else bool(use)
+        # collectives: the flattened axes (psum, all_gather, the full
+        # crossbar, queue FIFOs) and one group per axis (staged crossbar)
+        self._group = axes_group(mesh, self.axes)
+        self._axis_groups = tuple(mesh.get_group(a) for a in self.axes)
+        self.sidx = flat_axis_index(mesh, self.axes)
         self.last_stats: dict = {}
         self.last_level_seconds: list[float] = []
+
+    @classmethod
+    def abstract(cls, mesh, num_vertices: int,
+                 axis_names: tuple[str, ...] | None = None,
+                 cfg: DistConfig | None = None, align: int = 32,
+                 pes_per_device: int = 1):
+        """Graph-less engine for the dry-run (``launch.dryrun``): the
+        reference's shard arithmetic (q = mesh size x ``pes_per_device``,
+        ``vl`` = ceil(num_vertices / q) rounded up to ``align``) and no
+        graph until :meth:`abstract_inputs` gives it stand-ins.  Its
+        ``_push`` / ``_pull`` steps then run on this rank of ``mesh``."""
+        self = cls.__new__(cls)
+        self.pg = None
+        self.program = BFS
+        self._out_deg_np = None
+        self._bind_mesh(mesh, axis_names, cfg)
+        self.k = pes_per_device
+        self.q = self.d * pes_per_device
+        vl = -(-num_vertices // self.q)
+        self.vl = -(-vl // align) * align
+        self.wl = self.vl // bitmap.WORD_BITS
+        self.n_pad = self.q * self.vl
+        return self
+
+    def abstract_inputs(self, avg_degree: float = 16.0,
+                        pad_multiple: int = 128) -> dict:
+        """Zero-filled stand-ins for one BFS step's inputs on this rank's
+        ``k`` shards, on the engine's device, in the reference's shapes:
+        frontier / visited int32[k, wl], level int32[k, vl], lvl 0,
+        indptr int32[k, vl + 1], indices int32[k, e] with e = vl x
+        ``avg_degree`` rounded up to ``pad_multiple``.  The stand-ins also
+        become the engine's graph (out- and in-lists alike), which its
+        steps read.  Real tensors, not ``meta`` ones: a step reads its
+        all-reduced sums back to the host."""
+        e = int(self.vl * avg_degree)
+        e = max(-(-e // pad_multiple) * pad_multiple, pad_multiple)
+        k = self.k
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=self.device)
+
+        sds = dict(frontier=zeros(k, self.wl), visited=zeros(k, self.wl),
+                   level=zeros(k, self.vl), lvl=0,
+                   indptr=zeros(k, self.vl + 1), indices=zeros(k, e))
+        self.out_indptr = self.in_indptr = sds["indptr"]
+        self.out_indices = self.in_indices = sds["indices"]
+        self._out_deg_dev = self._in_deg_dev = zeros(k, self.vl)
+        return sds
 
     @property
     def num_vertices(self) -> int:

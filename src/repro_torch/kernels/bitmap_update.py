@@ -14,7 +14,8 @@ new`` and the popcount of ``new``:
 The TPU kernels took ``[rows, 128]`` word tiles padded to whole row
 blocks; these take any ``w`` as it is.  A tensor on the CPU goes to the
 plain version in ``kernels.ref``; a CUDA tensor launches the kernel or
-raises.  Each wrapper counts its launches in ``LAUNCHES``.  Outputs are
+raises.  Each wrapper counts its launches in ``LAUNCHES`` and reports each
+call to the step analysis counting, if any, at :func:`p3_bytes`.  Outputs are
 fresh tensors, or K4's ``out=`` buffers, which may not overlap its inputs:
 the engines retry an overflowed level from its pre-step state.
 """
@@ -24,7 +25,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, _report, ref
 from repro_torch.kernels._build import check_arg, raise_on_error, stream_ptr
 
 LAUNCHES = {"bitmap_update": 0, "bitmap_update_batch": 0}
@@ -68,6 +69,13 @@ def scratch_for(dev: torch.device, stream: int | None = None
         buf = _scratch[(dev.index, stream)] = torch.zeros(
             _SCRATCH_WORDS, dtype=torch.int32, device=dev)
     return buf
+
+
+def p3_bytes(cand: torch.Tensor) -> int:
+    """K3's or K4's bytes: cand and visited read, new and visited_out
+    written, and one int32 count a plane (K3, int32[g, w]) or one (K4)."""
+    return 4 * cand.numel() * 4 + 4 * (cand.shape[0] if cand.dim() == 2
+                                       else 1)
 
 
 def _checked_device(cand: torch.Tensor, visited: torch.Tensor,
@@ -118,6 +126,10 @@ def bitmap_update(cand: torch.Tensor, visited: torch.Tensor, out=None):
     visited_out, count int32[1, 1]) to write, none overlapping another or
     an input.  Returns (new, visited_out, count int32[1, 1]): ``out`` when
     given, else fresh tensors."""
+    if _report.active is not None:
+        return _report.active.kernel_call(
+            "bitmap_update", lambda: (p3_bytes(cand), 0.0), bitmap_update,
+            cand, visited, out)
     if cand.device.type == "cpu":
         if out is not None:
             _check_out(cand, visited, out)
@@ -149,6 +161,10 @@ def bitmap_update_batch(cand: torch.Tensor, visited: torch.Tensor):
 
     cand/visited: int32[g, w] packed words, planes-major.  Returns (new,
     visited_out, counts int32[g, 1, 1])."""
+    if _report.active is not None:
+        return _report.active.kernel_call(
+            "bitmap_update_batch", lambda: (p3_bytes(cand), 0.0),
+            bitmap_update_batch, cand, visited)
     if cand.device.type == "cpu":
         return ref.bitmap_update_batch_ref(cand, visited)
     dev = _checked_device(cand, visited, 2)

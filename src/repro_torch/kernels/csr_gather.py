@@ -9,7 +9,8 @@ and design):
 
 A tensor on the CPU goes to the plain version in ``kernels.ref``; a CUDA
 tensor launches the kernel or raises.  The wrapper counts its launches in
-``LAUNCHES``.
+``LAUNCHES`` and reports each call to the step analysis counting, if any,
+at :func:`gather_bytes`.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, _report, ref
 from repro_torch.kernels._build import check_arg, raise_on_error, stream_ptr
 
 LAUNCHES = {"gather_pages": 0}
@@ -43,6 +44,17 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def gather_bytes(edges_paged: torch.Tensor, page_ids: torch.Tensor) -> int:
+    """K5's bytes on these inputs: each distinct page the ids reach read
+    once (short lists share pages), each item's page written, and the
+    ids.  Reads the ids back to the host."""
+    n, page = edges_paged.shape
+    ids = page_ids.to(torch.int64)
+    ids = torch.where(ids < 0, ids + n, ids).clamp(0, n - 1)
+    m, distinct = ids.numel(), int(torch.unique(ids).numel())
+    return (distinct + m) * page * edges_paged.element_size() + m * 4
+
+
 def gather_pages(edges_paged: torch.Tensor,
                  page_ids: torch.Tensor) -> torch.Tensor:
     """Gather pages of the edge array: ``out[i] = edges_paged[page_ids[i]]``
@@ -55,6 +67,11 @@ def gather_pages(edges_paged: torch.Tensor,
     if edges_paged.dim() != 2 or edges_paged.shape[0] == 0:
         raise ValueError(f"edges_paged must be [num_pages >= 1, page], got "
                          f"{tuple(edges_paged.shape)}")
+    if _report.active is not None:
+        return _report.active.kernel_call(
+            "gather_pages", lambda: (gather_bytes(edges_paged, page_ids),
+                                     0.0),
+            gather_pages, edges_paged, page_ids)
     if edges_paged.device.type == "cpu":
         return ref.gather_pages_ref(edges_paged, page_ids)
     dev = edges_paged.device

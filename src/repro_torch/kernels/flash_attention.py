@@ -18,7 +18,8 @@ nothing in the kernel, whose tiles are its own (128 query rows and
 itself; in the reference they only fix the order of summation.  There is no
 ``interpret`` argument.  A tensor on the CPU goes to the plain version in
 ``kernels.ref``; a CUDA tensor launches the kernel or raises.  The wrapper
-counts its launches in ``LAUNCHES``.
+counts its launches in ``LAUNCHES`` and reports each call to the step
+analysis counting, if any, at :func:`attention_cost`.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, _report, ref
 from repro_torch.kernels._build import check_arg, raise_on_error, stream_ptr
 
 LAUNCHES = {"flash_attention": 0}
@@ -55,6 +56,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def attention_cost(q: torch.Tensor, causal: bool) -> tuple[int, float]:
+    """K7's (bytes, FLOPs): q, k and v read and the output written once;
+    4·S²·hd FLOPs a head (the two products), half of them when causal."""
+    bh, s, hd = q.shape
+    flops = 4.0 * bh * s * s * hd
+    return 4 * q.numel() * q.element_size(), flops / 2 if causal else flops
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_q: int = 128,
                     block_k: int = 128) -> torch.Tensor:
@@ -72,6 +81,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if block_q < 1 or block_k < 1 or s % block_q or s % block_k:
         raise ValueError(f"block_q {block_q} and block_k {block_k} must "
                          f"divide S = {s}")
+    if _report.active is not None:
+        return _report.active.kernel_call(
+            "flash_attention", lambda: attention_cost(q, causal),
+            flash_attention, q, k, v, causal=causal, block_q=block_q,
+            block_k=block_k)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal)
     dev = q.device

@@ -16,7 +16,9 @@ their bound and design):
 
 A tensor on the CPU goes to the plain version in ``kernels.ref``; a CUDA
 tensor launches the kernel or raises.  Each wrapper counts its launches in
-``LAUNCHES`` (one per call that reaches the card).  Outputs are always
+``LAUNCHES`` (one per call that reaches the card) and reports each call
+to the step analysis counting, if any, at the bytes of
+:func:`propagate_traffic` / :func:`tiled_traffic`.  Outputs are always
 fresh tensors: the engine retries an overflowed level from its pre-step
 state, which must never be written in place.
 """
@@ -26,7 +28,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, _report, ref
 from repro_torch.kernels._build import check_arg, raise_on_error, stream_ptr
 
 LAUNCHES = {"msbfs_propagate_planes": 0, "msbfs_propagate_planes_tiled": 0}
@@ -80,6 +82,12 @@ def msbfs_propagate_planes(frontier: torch.Tensor, seen: torch.Tensor,
     new = scatter_combine(frontier[src] -> tgt) & ~seen, seen_out =
     seen | new, count = popcount(new).
     """
+    if _report.active is not None:
+        return _report.active.kernel_call(
+            "msbfs_propagate_planes", lambda: (propagate_traffic(
+                frontier, src, tgt, valid, n_edges)["bytes"], 0.0),
+            msbfs_propagate_planes, frontier, seen, src, tgt, op, valid,
+            n_edges)
     if op not in _OP_CODE:
         raise ValueError(f"op must be one of {sorted(_OP_CODE)}, got {op!r}")
     if frontier.device.type == "cpu":
@@ -94,6 +102,44 @@ def msbfs_propagate_planes(frontier: torch.Tensor, seen: torch.Tensor,
         "msbfs_propagate_planes")
     LAUNCHES["msbfs_propagate_planes"] += 1
     return new, seen_out, cnt
+
+
+def propagate_traffic(frontier: torch.Tensor, src: torch.Tensor,
+                      tgt: torch.Tensor, valid: torch.Tensor | None = None,
+                      n_edges=None) -> dict:
+    """K1's bytes on these inputs: what the data makes it move, each
+    input read once and each output written once.  The src (and valid)
+    bytes of each slot below n_edges, the tgt of each real edge whose
+    message is not zero, each distinct frontier row the real edges read,
+    seen, the two outputs new and seen_out, and the count.  Returns
+    {bytes, slots, real, live, rows}: the slots below n_edges, the real
+    edges among them, those whose message is not zero, and the distinct
+    source rows.  Reads the data back to the host."""
+    n, nw = frontier.shape
+    m = int(src.shape[0])
+    slots = m if n_edges is None else min(max(int(n_edges), 0), m)
+    s, t = src[:slots], tgt[:slots]
+    ok = (s >= 0) & (s < n) & (t >= 0) & (t < n)
+    if valid is not None:
+        ok &= valid[:slots]
+    s_ok = s[ok].to(torch.int64)
+    real = int(s_ok.numel())
+    live = int((frontier[s_ok] != 0).any(1).sum())
+    rows = int(torch.unique(s_ok).numel())
+    per_slot = 4 if valid is None else 5
+    nbytes = slots * per_slot + live * 4 + rows * nw * 4 + 3 * n * nw * 4 + 4
+    return dict(bytes=nbytes, slots=slots, real=real, live=live, rows=rows)
+
+
+def tiled_traffic(seen: torch.Tensor, msg: torch.Tensor,
+                  tile_chunks: torch.Tensor, block_edges: int) -> int:
+    """K2's bytes on these inputs: the message of every slot in the
+    tiles' head chunks (the slots it must read), the target of each slot
+    whose message is not zero, seen, the two outputs new and seen_out,
+    and the count.  Reads the data back to the host."""
+    head = int(tile_chunks.clamp(min=0).sum()) * block_edges
+    live = int((msg != 0).any(1).sum())
+    return head * msg.shape[1] * 4 + live * 4 + 3 * seen.numel() * 4 + 4
 
 
 def whole_launch_args(frontier, seen, src, tgt, valid, n_edges, new,
@@ -189,6 +235,12 @@ def msbfs_propagate_planes_tiled(seen: torch.Tensor, msg: torch.Tensor,
         messages.  The plain version reads every chunk.
     Returns (new, seen_out, count int32[1, 1]).
     """
+    if _report.active is not None:
+        return _report.active.kernel_call(
+            "msbfs_propagate_planes_tiled", lambda: (tiled_traffic(
+                seen, msg, tile_chunks, block_edges), 0.0),
+            msbfs_propagate_planes_tiled, seen, msg, tgt, chunk_tile,
+            tile_chunks, tile_rows, block_edges, op)
     if op not in _OP_CODE:
         raise ValueError(f"op must be one of {sorted(_OP_CODE)}, got {op!r}")
     r, nw = seen.shape

@@ -13,7 +13,8 @@ design):
 A row block with no tile is 0 (the reference's oracle; its TPU kernel
 left such rows unwritten).  A tensor on the CPU goes to the plain version
 in ``kernels.ref``; a CUDA tensor launches the kernel or raises.  The
-wrapper counts its launches in ``LAUNCHES``.
+wrapper counts its launches in ``LAUNCHES`` and reports each call to the
+step analysis counting, if any, at :func:`spmv_cost`.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, _report, ref
 from repro_torch.kernels._build import check_arg, raise_on_error, stream_ptr
 
 LAUNCHES = {"pull_spmv_blocks": 0}
@@ -46,6 +47,19 @@ def _lib() -> ctypes.CDLL:
         f.restype = i
         _bound = True
     return lib
+
+
+def spmv_cost(blocks: torch.Tensor, frontier: torch.Tensor,
+              num_row_blocks: int) -> tuple[int, float]:
+    """K6's (bytes, FLOPs): every tile, the frontier and the two int32
+    block indices read, the f32 output written; two FLOPs for each
+    (row, col, lane) of every tile."""
+    nb, b, _ = blocks.shape
+    lanes = frontier.shape[2]
+    nbytes = (blocks.numel() * blocks.element_size()
+              + frontier.numel() * frontier.element_size()
+              + int(num_row_blocks) * b * lanes * 4 + 2 * nb * 4)
+    return nbytes, 2.0 * nb * b * b * lanes
 
 
 def pull_spmv_blocks(blocks: torch.Tensor, block_row: torch.Tensor,
@@ -75,6 +89,12 @@ def pull_spmv_blocks(blocks: torch.Tensor, block_row: torch.Tensor,
         raise ValueError(f"block_row/block_col must be [{nb}], got "
                          f"{tuple(block_row.shape)}/{tuple(block_col.shape)}")
     num_row_blocks = int(num_row_blocks)
+    if _report.active is not None:
+        return _report.active.kernel_call(
+            "pull_spmv_blocks",
+            lambda: spmv_cost(blocks, frontier, num_row_blocks),
+            pull_spmv_blocks, blocks, block_row, block_col, row_first,
+            frontier, num_row_blocks)
     if blocks.device.type == "cpu":
         return ref.pull_spmv_blocks_ref(blocks, block_row, block_col,
                                         row_first, frontier, num_row_blocks)

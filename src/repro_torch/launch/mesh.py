@@ -10,6 +10,8 @@ mesh's row-major order, which is the reference's flat shard index
 The process group is the caller's: start one with
 ``torch.distributed.init_process_group`` (NCCL for a CUDA mesh, gloo for
 a CPU mesh) before :func:`make_mesh`, which never starts one itself.
+:func:`make_production_mesh` is the one exception: the dry-run's 256- or
+512-rank mesh over a *fake* process group, run by one process as rank 0.
 """
 from __future__ import annotations
 
@@ -61,6 +63,36 @@ def make_mesh(axis_shapes, axis_names, device=None) -> DeviceMesh:
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
     return init_device_mesh(dev_type, axis_shapes,
                             mesh_dim_names=axis_names)
+
+
+PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device=None) -> DeviceMesh:
+    """16x16 = 256 ranks a pod; 2 pods = 512 ranks when ``multi_pod`` (the
+    reference's production meshes), over a fake process group in which
+    this process is rank 0: every collective runs without peers and
+    moves no data, so one process runs one rank's step programs at the
+    production shard counts (the dry-run).
+
+    Starts the fake group itself when none is started; a started group
+    must be a fake one of the mesh's size.  ``device=None`` means the CUDA
+    card (raising without one), ``"cpu"`` the CPU."""
+    shape, axes = PRODUCTION_SHAPES[bool(multi_pod)]
+    world = math.prod(shape)
+    dev_type = resolve_device(device).type
+    if not dist.is_initialized():
+        # importing the module registers the "fake" backend
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=world)
+    elif dist.get_backend() != "fake" or dist.get_world_size() != world:
+        raise ValueError(f"the production mesh needs a fake process group "
+                         f"of {world} ranks, this one is "
+                         f"{dist.get_backend()} of {dist.get_world_size()}")
+    return init_device_mesh(dev_type, shape, mesh_dim_names=axes)
 
 
 def mesh_device(mesh: DeviceMesh) -> torch.device:

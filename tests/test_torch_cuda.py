@@ -838,3 +838,65 @@ def test_distributed_cuda_mesh_refuses_plain_path(dev, tmp_path):
             make_mesh((1,), ("data",), device="cpu")
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_step_analysis_counts_equal_on_card_and_cpu(dev, tmp_path,
+                                                    monkeypatch):
+    """A packed wave and a single-source root count the same on the card
+    as on the CPU (``use_kernels=True``, the wrappers' plain bodies), and
+    the card's K1 and K4 calls are counted as often as they launch."""
+    from repro_torch.graph import get_dataset
+    from repro_torch.launch.step_analysis import StepAnalysis
+    monkeypatch.setenv("REPRO_TORCH_GRAPH_CACHE", str(tmp_path))
+    ds = get_dataset("small-12-8")
+    deg = np.diff(ds.csr.indptr)
+    roots = np.random.default_rng(0).choice(np.flatnonzero(deg > 0), 64,
+                                            replace=False)
+    counts, rows = {}, {}
+    for d in (dev, "cpu"):
+        g = build_local_graph(ds.csr, ds.csc, device=d)
+        runner = BFSRunner(g, use_kernels=True)
+        kmod.reset_launches()
+        kbu.reset_launches()
+        with StepAnalysis() as wave:
+            rows[str(d)] = MultiSourceBFSRunner(
+                g, use_kernels=True).run(roots).levels
+        with StepAnalysis() as one:
+            runner.run(int(roots[0]))
+        counts[str(d)] = (wave.result(), wave.kernels, one.result(),
+                          one.kernels)
+        if d is dev:
+            assert wave.kernels["msbfs_propagate_planes"]["calls"] == \
+                kmod.LAUNCHES["msbfs_propagate_planes"] > 0
+            assert one.kernels["bitmap_update"]["calls"] == \
+                kbu.LAUNCHES["bitmap_update"] > 0
+    np.testing.assert_array_equal(rows[str(dev)], rows["cpu"])
+    assert counts[str(dev)] == counts["cpu"]
+
+
+@pytest.mark.cuda
+def test_dryrun_cell_on_the_card(dev, tmp_path):
+    """One dry-run cell (lj-like, bitmap, staged, 2x16x16) on the card, in
+    its own process: a record on the card with its peak bytes."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    path = tmp_path / "cell.json"
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--bfs",
+         "lj-like", "--multi-pod", "--json-out", str(path)], env=env,
+        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    rec = json.loads(path.read_text())
+    assert rec["device"] == torch.cuda.get_device_name(0)
+    assert (rec["shards"], rec["verts_per_shard"], rec["edge_budget"]) == (
+        512, 512, 7168)
+    for phase in ("push", "pull"):
+        assert rec[phase]["memory"]["peak_bytes"] > 0
+        assert rec[phase]["per_device"]["bytes"] > 0
