@@ -100,6 +100,26 @@ them.  Phases, each failing the run on any error:
       CUDA cores) within its stated tolerance: adversarial dtypes, head
       dims, lengths and blocks, then llama3-8b's attention (32 heads,
       head dim 128, S = 8192, causal, bf16);
+  (t) the LM stack (``repro_torch.models``; it launches none of the
+      seven kernels): (t1) each of the ten reduced configs, bf16 weights
+      from a seeded CPU generator copied to the card, runs ``loss_fn``
+      and its backward (loss and every grad finite) and 4 ``serve_step``
+      positions; the loss within 1e-2 and the logits within an rms ratio
+      of 2e-2 of the CPU port's on the same weights; (t2) the slice's
+      main path, ``greedy_decode("llama3-8b", reduced=False, batch=4,
+      prompt_len=64, gen_tokens=32)``: 32 layers, 7.505e9 parameters,
+      15.0 GB of bf16 weights drawn on the card; prefill and decode
+      tok/s and the peak memory allocated; the logits finite, and the
+      tokenwise decode's last prompt position within an rms ratio of
+      3e-2 of ``prefill_step`` over the same prompt; (t3)
+      qwen3-moe-30b-a3b at full width (d 2048, 128 experts, top-8,
+      expert d_ff 768, ``moe_chunk`` 2048; ``ep`` falls back to
+      ``gather`` on one rank) with its depth cut from 48 to 4 layers: a
+      prefill over 2 x 2048 tokens and 8 decode steps, the share of
+      (token, slot) pairs dropped by capacity counted; then the first
+      layer's ``moe_forward`` in float32 on its prefill input, on the
+      card and on the CPU: the same top-k indices, the same drops,
+      outputs within 1e-4 + 1e-4·|want|;
   (s) the step analysis, the dry-run and the analytic model: (s1) (d)'s
       wave (its roots, ``MultiSourceBFSRunner``) and one (h) root counted
       by ``launch.step_analysis.StepAnalysis`` on the card: FLOPs, bytes,
@@ -130,8 +150,8 @@ them.  Phases, each failing the run on any error:
       (torch.profiler).
 
 Before the ``kernels`` line, one ``serving`` JSON line carries (p)'s and
-(q)'s numbers, one ``distributed`` JSON line (r)'s and one ``analysis``
-JSON line (s)'s.  The last line
+(q)'s numbers, one ``distributed`` JSON line (r)'s, one ``analysis``
+JSON line (s)'s and one ``lm`` JSON line (t)'s.  The last line
 of standard output is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -140,6 +160,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import json
 import os
 import signal
@@ -158,6 +179,8 @@ sys.path.insert(0, SRC)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.configs import (ARCH_NAMES, get_config,  # noqa: E402
+                                 get_reduced_config)
 from repro_torch.core.bfs_local import (INF, BFSRunner,  # noqa: E402
                                         build_local_graph)
 from repro_torch.core.vertex_program import (IntegrityError,  # noqa: E402
@@ -174,8 +197,12 @@ from repro_torch.kernels import msbfs_propagate as kmod  # noqa: E402
 from repro_torch.kernels import pull_spmv as kps  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.roofline import H100, roofline_terms  # noqa: E402
-from repro_torch.launch.serve import serve_bfs, serve_bfs_async  # noqa: E402
+from repro_torch.launch.serve import (decode_loop,  # noqa: E402
+                                      greedy_decode, serve_bfs,
+                                      serve_bfs_async)
 from repro_torch.launch.step_analysis import StepAnalysis  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import transformer as tt  # noqa: E402
 
 # kernel name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -2292,6 +2319,285 @@ def phase_flash(seed: int, dev) -> dict:
     return r
 
 
+# -- (t) the LM stack ---------------------------------------------------------
+
+LM_RMS = 2e-2            # bf16: rms(card - cpu) / rms(cpu), logits
+LM_LOSS = 1e-2           # bf16: |card - cpu| of the loss
+LM_STEPS = 4             # serve_step positions a reduced config runs
+CONSISTENCY_RMS = 3e-2   # (t2): tokenwise decode against prefill_step
+CONSISTENCY_RMS_F32 = 1e-3   # the same on float32 weights
+LLAMA_RUN = dict(batch=4, prompt_len=64, gen_tokens=32)
+QWEN_LAYERS = 4          # qwen3-moe-30b-a3b's depth cut from 48
+QWEN_PROMPT = (2, 2048)  # (t3)'s prefill: batch x tokens
+QWEN_DECODE = 8          # (t3)'s decode steps
+
+
+def rms_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).square().mean().sqrt()
+                 / want.square().mean().sqrt().clamp(min=1e-30))
+
+
+def lm_batch(cfg, seed: int, b: int = 2, s: int = 16, enc: int = 8) -> dict:
+    """A reduced config's inputs on the CPU (seeded numpy, bf16 floats)."""
+    rng = np.random.default_rng(seed)
+    batch = {"labels": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (b, s), dtype=np.int32))}
+    if cfg.frontend == "vision_stub":
+        batch["embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, s, cfg.d_model), dtype=np.float32)).to(torch.bfloat16)
+    else:
+        batch["tokens"] = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (b, s), dtype=np.int32))
+    if cfg.frontend == "audio_stub":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, enc, cfg.d_model), dtype=np.float32)).to(torch.bfloat16)
+    return batch
+
+
+def lm_reduced(name: str, seed: int, dev) -> dict:
+    """(t1) one reduced config: bf16 weights from a seeded CPU generator
+    copied to the card; ``loss_fn`` and its backward on the card (loss and
+    every grad finite), then ``LM_STEPS`` ``serve_step`` positions; the
+    card's loss, logits and step logits against the CPU port's."""
+    cfg = get_reduced_config(name)
+    cpu = tt.init_params(cfg, torch.Generator().manual_seed(seed))
+    card = tt.init_params(cfg, torch.Generator().manual_seed(seed)).to(dev)
+    batch = lm_batch(cfg, seed)
+    loss, _ = tt.loss_fn(card, cfg, {k: v.to(dev) for k, v in batch.items()})
+    loss.backward()
+    bad = [n for n, p in card.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    if not bool(torch.isfinite(loss)) or bad:
+        raise AssertionError(f"(t1) {name}: loss {loss.item()}, grads not "
+                             f"finite: {bad[:4]}")
+    with torch.no_grad():
+        want, _ = tt.loss_fn(cpu, cfg, batch)
+        logits_g, _ = tt.forward_train(card, cfg, **{
+            k: v.to(dev) for k, v in batch.items() if k != "labels"})
+        logits_w, _ = tt.forward_train(cpu, cfg, **{
+            k: v for k, v in batch.items() if k != "labels"})
+        caches = [tt.init_decode_state(cfg, 2, 8, enc_len=8, device=d)
+                  for d in ("cpu", dev)]
+        tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (LM_STEPS, 2), dtype=np.int32))
+        step_err = 0.0
+        for pos in range(LM_STEPS):
+            lw, caches[0] = tt.serve_step(cpu, cfg, caches[0], tokens[pos],
+                                          pos)
+            lg, caches[1] = tt.serve_step(card, cfg, caches[1],
+                                          tokens[pos].to(dev), pos)
+            if not bool(torch.isfinite(lg).all()):
+                raise AssertionError(f"(t1) {name}: step {pos} not finite")
+            step_err = max(step_err, rms_ratio(lg, lw))
+    r = dict(loss=loss.item(), loss_err=abs(loss.item() - want.item()),
+             logits_rms=rms_ratio(logits_g, logits_w), step_rms=step_err)
+    if (r["loss_err"] > LM_LOSS or r["logits_rms"] > LM_RMS
+            or r["step_rms"] > LM_RMS):
+        raise AssertionError(f"(t1) {name}: {r} outside loss {LM_LOSS}, "
+                             f"rms {LM_RMS}")
+    return r
+
+
+def lm_llama(seed: int, dev) -> dict:
+    """(t2) the slice's main path: ``greedy_decode`` of llama3-8b at its
+    full size on the card, then ``prefill_step`` over the same prompt
+    against the tokenwise decode's last prompt position."""
+    cfg = get_config("llama3-8b")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = greedy_decode("llama3-8b", False, seed=seed, keep_state=True,
+                        **LLAMA_RUN)
+    decode_wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    params = out.pop("params")
+    n_layers = sum(len(s) for s in params.segments)
+    n_weights = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    norms = (2 * cfg.num_layers + 1) * cfg.d_model   # param_count omits
+    if n_layers != cfg.num_layers or n_weights != cfg.param_count() + norms:
+        raise AssertionError(f"(t2) llama3-8b has {n_layers} layers and "
+                             f"{n_weights} weights")
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = tt.prefill_step(params, cfg, {
+            "tokens": torch.from_numpy(out["prompt"]).to(dev)})
+        torch.cuda.synchronize()
+        prefill_step_s = time.perf_counter() - t0
+    got = out.pop("prompt_logits")
+    last = out.pop("logits")
+    err = rms_ratio(got, want[:, :cfg.vocab_size])
+    finite = bool(torch.isfinite(last).all()) and bool(
+        torch.isfinite(got).all()) and out["finite"]
+    del params, want, got, last
+    torch.cuda.empty_cache()
+    # the same check on float32 weights (the bf16 ones before rounding):
+    # what bf16 leaves of the difference is its rounding
+    prompt = out.pop("prompt")
+    with torch.inference_mode():
+        params = tt.init_params(cfg, torch.Generator(dev).manual_seed(seed),
+                                torch.float32)
+        caches = tt.init_decode_state(cfg, prompt.shape[0], prompt.shape[1],
+                                      torch.float32, device=dev)
+        got = decode_loop(params, cfg, caches, prompt, 1)["prompt_logits"]
+        want = tt.prefill_step(params, cfg, {
+            "tokens": torch.from_numpy(prompt).to(dev)})
+        err32 = rms_ratio(got, want[:, :cfg.vocab_size])
+    del params, caches, got, want
+    torch.cuda.empty_cache()
+    r = dict(out, layers=n_layers, param_count=cfg.param_count(),
+             weights=n_weights, weight_bytes=weight_bytes, peak_bytes=peak,
+             consistency_rms=err, consistency_rms_f32=err32,
+             prefill_step_s=prefill_step_s, wall_s=decode_wall)
+    if not finite or err > CONSISTENCY_RMS or err32 > CONSISTENCY_RMS_F32:
+        raise AssertionError(f"(t2) llama3-8b: finite {finite}, tokenwise "
+                             f"against prefill_step rms {err} (limit "
+                             f"{CONSISTENCY_RMS}), in float32 {err32} "
+                             f"(limit {CONSISTENCY_RMS_F32})")
+    return r
+
+
+@contextlib.contextmanager
+def counted_drops(calls: list):
+    """Record every ``moe_forward`` call: its input, its module, and the
+    (token, slot) pairs it routes and drops (``moe.routing`` on the
+    call's own input)."""
+    orig = moe.moe_forward
+
+    def counting(x, p, **kw):
+        _, kept = moe.routing(x, p, top_k=kw["top_k"], chunk=kw["chunk"],
+                              capacity_factor=kw["capacity_factor"])
+        calls.append(dict(x=x, p=p, dropped=int((~kept).sum()),
+                          pairs=kept.numel()))
+        return orig(x, p, **kw)
+
+    moe.moe_forward = counting
+    try:
+        yield calls
+    finally:
+        moe.moe_forward = orig
+
+
+def lm_moe(seed: int, dev) -> dict:
+    """(t3) qwen3-moe-30b-a3b at its full width, its depth cut from 48 to
+    ``QWEN_LAYERS``: a prefill over ``QWEN_PROMPT`` tokens (once with the
+    capacity drops counted layer by layer, once timed) and
+    ``QWEN_DECODE`` decode steps on the card (``ep`` falls back to
+    ``gather`` on one rank); then the first layer's ``moe_forward`` on
+    its prefill input, in float32, on the card against the CPU port."""
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"),
+                              num_layers=QWEN_LAYERS)
+    params = tt.init_params(cfg, torch.Generator(dev).manual_seed(seed))
+    b, s = QWEN_PROMPT
+    prompt = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, s), dtype=np.int32)
+    batch = {"tokens": torch.from_numpy(prompt).to(dev)}
+    calls: list = []
+    with torch.inference_mode():
+        with counted_drops(calls):
+            tt.prefill_step(params, cfg, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = tt.prefill_step(params, cfg, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        caches = tt.init_decode_state(cfg, b, QWEN_DECODE, device=dev)
+        with counted_drops(calls):
+            run = decode_loop(params, cfg, caches, prompt[:, :1],
+                              QWEN_DECODE)
+    finite = bool(torch.isfinite(logits).all()) and bool(
+        torch.isfinite(run["logits"]).all())
+    pre, dec = calls[:QWEN_LAYERS], calls[QWEN_LAYERS:]
+    dropped = sum(c["dropped"] for c in pre)
+    pairs = sum(c["pairs"] for c in pre)
+    # one layer in float32: the card against the CPU, on the same input
+    x32, p = pre[0]["x"].float(), pre[0]["p"]
+    kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+              chunk=cfg.moe_chunk)
+    with torch.no_grad():
+        p_card = moe.MoE(cfg.d_model, cfg.d_ff, cfg.num_experts,
+                         torch.float32, dev)
+        p_card.load_state_dict({k: v.float() for k, v in
+                                p.state_dict().items()})
+        p_cpu = moe.MoE(cfg.d_model, cfg.d_ff, cfg.num_experts,
+                        torch.float32)
+        p_cpu.load_state_dict(p_card.state_dict())
+        idx_g, kept_g = moe.routing(x32, p_card, **kw)
+        y_g, _ = moe.moe_forward(x32, p_card, **kw)
+        x_cpu = x32.cpu()
+        idx_w, kept_w = moe.routing(x_cpu, p_cpu, **kw)
+        y_w, _ = moe.moe_forward(x_cpu, p_cpu, **kw)
+        probs = torch.softmax(x_cpu.reshape(-1, cfg.d_model) @ p_cpu.router,
+                              -1)
+        top = torch.sort(probs, -1, descending=True).values
+        gap = float((top[:, cfg.top_k - 1] - top[:, cfg.top_k]).min())
+    same_idx = bool(torch.equal(idx_g.cpu(), idx_w))
+    same_drops = bool(torch.equal(kept_g.cpu(), kept_w))
+    y_g = y_g.cpu()
+    excess = float(((y_g - y_w).abs() - (1e-4 + 1e-4 * y_w.abs())).max())
+    r = dict(layers=QWEN_LAYERS, of_layers=48, d_model=cfg.d_model,
+             experts=cfg.num_experts, top_k=cfg.top_k, d_ff=cfg.d_ff,
+             moe_chunk=cfg.moe_chunk, dispatch=cfg.moe_dispatch,
+             param_count=cfg.param_count(), prefill_tokens=b * s,
+             prefill_s=prefill_s, prefill_tok_s=b * s / prefill_s,
+             decode_steps=QWEN_DECODE,
+             decode_s=run["prefill_s"] + run["decode_s"],
+             dropped=dropped, pairs=pairs, drop_share=dropped / pairs,
+             layer_drop_shares=[c["dropped"] / c["pairs"] for c in pre],
+             decode_dropped=sum(c["dropped"] for c in dec),
+             decode_pairs=sum(c["pairs"] for c in dec),
+             f32_same_top_k=same_idx, f32_same_drops=same_drops,
+             f32_max_abs_err=float((y_g - y_w).abs().max()),
+             f32_kth_gap_min=gap, finite=finite)
+    del params, caches, run, logits, calls, pre, dec, p, p_card, x32, y_g
+    torch.cuda.empty_cache()
+    if not (finite and same_idx and same_drops and excess <= 0):
+        raise AssertionError(f"(t3) qwen3-moe: {r}, excess over 1e-4 + "
+                             f"1e-4*|want| {excess}")
+    return r
+
+
+def phase_lm(seed: int, dev, card: str) -> dict:
+    """(t) the LM stack on the card: (t1) the ten reduced configs, (t2)
+    llama3-8b's greedy decoding at full size, (t3) qwen3-moe-30b-a3b at
+    full width and cut depth."""
+    t_phase = time.perf_counter()
+    t1 = {}
+    for name in ARCH_NAMES:
+        t1[name] = r = lm_reduced(name, seed, dev)
+        log(f"(t1) {name}: loss {r['loss']:.5f}, card against the CPU port: "
+            f"loss err {r['loss_err']:.3g} (limit {LM_LOSS}), logits rms "
+            f"{r['logits_rms']:.3g}, {LM_STEPS} serve steps rms "
+            f"{r['step_rms']:.3g} (limit {LM_RMS}); grads finite")
+    t2 = lm_llama(seed, dev)
+    log(f"(t2) greedy_decode llama3-8b full size ({t2['layers']} layers, "
+        f"param_count {t2['param_count']:.4g}, {t2['weights']} weights, "
+        f"{t2['weight_bytes'] / 1e9:.2f} GB bf16) batch {t2['batch']} "
+        f"prompt {t2['prompt_len']} gen {t2['gen_tokens']}: prefill "
+        f"{t2['prefill_tok_s']} tok/s, decode {t2['decode_tok_s']} tok/s, "
+        f"peak {t2['peak_bytes'] / 1e9:.3f} GB allocated; tokenwise against "
+        f"prefill_step rms {t2['consistency_rms']:.4g} (limit "
+        f"{CONSISTENCY_RMS}), on float32 weights "
+        f"{t2['consistency_rms_f32']:.4g} (limit {CONSISTENCY_RMS_F32}); "
+        f"finite; {card}")
+    t3 = lm_moe(seed, dev)
+    log(f"(t3) qwen3-moe-30b-a3b at full width, {t3['layers']} of "
+        f"{t3['of_layers']} layers: prefill {t3['prefill_tokens']} tokens "
+        f"{t3['prefill_s']:.4f} s, {t3['decode_steps']} decode steps "
+        f"{t3['decode_s']:.4f} s; dropped {t3['dropped']} of {t3['pairs']} "
+        f"(token, slot) pairs ({t3['drop_share']:.4%}; by layer "
+        f"{', '.join(f'{x:.4%}' for x in t3['layer_drop_shares'])}); "
+        f"f32 layer card against CPU: same "
+        f"top-k {t3['f32_same_top_k']}, same drops {t3['f32_same_drops']}, "
+        f"max abs err {t3['f32_max_abs_err']:.3g} (least k-th gap "
+        f"{t3['f32_kth_gap_min']:.3g}); {card}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"(t) {phase_s:.2f}s")
+    return dict(card=card, phase_s=phase_s, t1=t1, t2=t2, t3=t3)
+
+
 def profile_device(label: str, run, top: int = 12,
                    keep: tuple = ("propagate_", "whole_")) -> None:
     """Device time by kernel name over one call of ``run`` (warm, ending in
@@ -2443,6 +2749,8 @@ def main(argv=None) -> int:
     real["gather_pages"] = phase_gather(ds, h["level0"], dev)
     real["pull_spmv_blocks"] = phase_spmv(ds, d["levels"], dev)
     real["flash_attention"] = phase_flash(args.seed, dev)
+    # (t) the LM stack (it launches none of the seven kernels)
+    lm = phase_lm(args.seed, dev, card)
 
     # each kernel's launches on its own path
     counts = {
@@ -2486,6 +2794,7 @@ def main(argv=None) -> int:
     log(json.dumps({"serving": serving}))
     log(json.dumps({"distributed": distributed}))
     log(json.dumps({"analysis": analysis}))
+    log(json.dumps({"lm": lm}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

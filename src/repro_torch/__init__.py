@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the ScalaBFS reproduction (batched MS-BFS on one GPU).
+"""PyTorch/CUDA port of the ScalaBFS reproduction (batched MS-BFS on one GPU,
+and the LM stack's models and greedy decoding).
 
 The package mirrors the layout of the JAX package ``repro`` so that each
 module's counterpart is easy to find, and imports neither JAX nor ``repro``.

@@ -12,9 +12,17 @@ The process group is the caller's: start one with
 a CPU mesh) before :func:`make_mesh`, which never starts one itself.
 :func:`make_production_mesh` is the one exception: the dry-run's 256- or
 512-rank mesh over a *fake* process group, run by one process as rank 0.
+
+:func:`use_mesh` makes a mesh ambient for the code it wraps, and
+:func:`get_abstract_mesh` reads it (None outside), as
+``repro.compat.use_mesh`` / ``get_abstract_mesh`` do for the reference's
+model code: the MoE layer's expert parallelism and
+``models.psharding.tp_size`` read it.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -24,6 +32,22 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from repro_torch.device import resolve_device
 
 _BACKEND = {"cuda": "nccl", "cpu": "gloo"}
+_AMBIENT = contextvars.ContextVar("ambient_mesh", default=None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: DeviceMesh):
+    """Make ``mesh`` the ambient mesh inside the ``with`` block."""
+    token = _AMBIENT.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _AMBIENT.reset(token)
+
+
+def get_abstract_mesh() -> DeviceMesh | None:
+    """The ambient mesh of :func:`use_mesh`, None outside one."""
+    return _AMBIENT.get()
 
 
 def make_mesh(axis_shapes, axis_names, device=None) -> DeviceMesh:

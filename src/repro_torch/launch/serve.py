@@ -1,7 +1,14 @@
-"""Batched graph-query serving on one GPU (port of the graph half of
-``repro.launch.serve``).
+"""Batched serving on one GPU: LM decode and batched graph queries (port
+of ``repro.launch.serve``).
 
-Answer a batch of queries over a device-resident graph with one
+LM path: random weights from a seed, a batch of random prompts fed token
+by token through ``serve_step`` (the decode path's cache updates), then
+greedy decoding; prints one JSON line with tokens/s:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
+      --reduced --batch 2 --prompt-len 8 --gen-tokens 8 [--device cpu]
+
+Graph path: answer a batch of queries over a device-resident graph with one
 multi-source traversal (``bfs_batch``) — the serving analogue of the
 paper's "keep every memory channel busy" aggregate-TEPS metric.  The
 vertex program is BFS, connected components (``--algo cc``, over the
@@ -35,17 +42,101 @@ import json
 import time
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
+from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.core.bfs_local import (INF, build_local_graph,
                                         count_traversed_edges)
 from repro_torch.core.vertex_program import (ConnectedComponentsRunner,
                                              MultiSourceBFSRunner,
                                              SSSPRunner, get_program)
+from repro_torch.device import resolve_device
 from repro_torch.graph import get_dataset, symmetrize_csr
+from repro_torch.models.transformer import (init_decode_state, init_params,
+                                            serve_step)
 
 RUNNERS = {"bfs": MultiSourceBFSRunner, "cc": ConnectedComponentsRunner,
            "sssp": SSSPRunner}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.inference_mode()
+def decode_loop(params, cfg, caches: list, prompt: np.ndarray,
+                gen_tokens: int) -> dict:
+    """Feed ``prompt`` (int[B, P]) token by token through ``serve_step``
+    from position 0, then decode ``gen_tokens - 1`` more tokens greedily.
+    Returns the ``gen_tokens`` tokens (int64[B, gen_tokens], the first
+    chosen by the last prompt position), the last prompt position's
+    logits, the last step's logits, and the seconds of each phase (to a
+    device sync)."""
+    dev = params.embed.device
+    prompt_t = torch.from_numpy(np.asarray(prompt)).to(dev).long()
+    prompt_len = prompt_t.shape[1]
+    _sync(dev)
+    t0 = time.perf_counter()
+    tok = prompt_t[:, 0]
+    logits = None
+    for pos in range(prompt_len):
+        logits, caches = serve_step(params, cfg, caches, tok, pos)
+        tok = (prompt_t[:, pos + 1] if pos + 1 < prompt_len
+               else torch.argmax(logits, -1))
+    prompt_logits = logits
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    out_tokens = [tok]
+    t0 = time.perf_counter()
+    for pos in range(prompt_len, prompt_len + gen_tokens - 1):
+        logits, caches = serve_step(params, cfg, caches, tok, pos)
+        tok = torch.argmax(logits, -1)
+        out_tokens.append(tok)
+    _sync(dev)
+    decode_s = time.perf_counter() - t0
+    return dict(tokens=torch.stack(out_tokens, 1), prompt_logits=prompt_logits,
+                logits=logits, prefill_s=prefill_s, decode_s=decode_s)
+
+
+def greedy_decode(arch: str, reduced: bool, batch: int, prompt_len: int,
+                  gen_tokens: int, cache_len: int = 0, seed: int = 0, *,
+                  device=None, keep_state: bool = False) -> dict:
+    """Serve one batch of ``arch`` (its reduced config when ``reduced``)
+    on ``device`` (None = the CUDA card): bf16 weights drawn from
+    ``seed`` on the device, ``batch`` random prompts of ``prompt_len``
+    tokens (numpy, ``seed``) fed through the decode path
+    (:func:`decode_loop`), then ``gen_tokens`` greedy tokens.  Returns
+    the reference's keys; ``keep_state=True`` also returns the
+    ``params``, the ``prompt`` and the last prompt position's logits
+    (``prompt_logits``) and the last step's (``logits``)."""
+    cfg = get_reduced_config(arch) if reduced else get_config(arch)
+    dev = resolve_device(device)
+    params = init_params(cfg, torch.Generator(dev).manual_seed(seed))
+    cache_len = cache_len or (prompt_len + gen_tokens)
+    enc_len = max(prompt_len // 2, 8) if cfg.encoder_layers else 0
+    caches = init_decode_state(cfg, batch, cache_len, enc_len=enc_len,
+                               device=dev)
+    rng = np.random.default_rng(seed)
+    prompt = rng.integers(0, cfg.vocab_size, (batch, prompt_len),
+                          dtype=np.int32)
+    run = decode_loop(params, cfg, caches, prompt, gen_tokens)
+    gen = run["tokens"].cpu().numpy()
+    out = {
+        "arch": cfg.name, "batch": batch, "prompt_len": prompt_len,
+        "gen_tokens": gen_tokens,
+        "prefill_tok_s": round(batch * prompt_len
+                               / max(run["prefill_s"], 1e-9), 1),
+        "decode_tok_s": round(batch * (gen_tokens - 1)
+                              / max(run["decode_s"], 1e-9), 1),
+        "sample_output": gen[0][:12].tolist(),
+        "finite": bool(torch.isfinite(run["logits"].float()).all()),
+    }
+    if keep_state:
+        out.update(params=params, prompt=prompt,
+                   prompt_logits=run["prompt_logits"], logits=run["logits"])
+    return out
 
 
 def build_engine(graph: str, *, algo: str = "bfs", device=None,
@@ -297,8 +388,16 @@ def _integrity_summary(stats: dict) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--bfs-graph", required=True,
-                    help="serve batched BFS queries over this graph")
+    ap.add_argument("--arch", help="serve greedy LM decoding of this "
+                    "architecture (configs.ARCH_NAMES)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the architecture's reduced config")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen-tokens", type=int, default=16)
+    ap.add_argument("--bfs-graph",
+                    help="serve batched BFS queries over this graph "
+                         "instead of LM")
     ap.add_argument("--bfs-batch", type=int, default=32,
                     help="number of concurrent BFS queries")
     ap.add_argument("--algo", choices=tuple(RUNNERS), default="bfs",
@@ -359,7 +458,13 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.bfs_serve_async:
+    if not args.bfs_graph:
+        if not args.arch:
+            ap.error("one of --arch or --bfs-graph is required")
+        out = greedy_decode(args.arch, args.reduced, args.batch,
+                            args.prompt_len, args.gen_tokens,
+                            device=args.device)
+    elif args.bfs_serve_async:
         out = serve_bfs_async(args.bfs_graph, requests=args.bfs_requests,
                               window=args.bfs_window,
                               max_batch=args.bfs_max_batch,

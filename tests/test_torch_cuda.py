@@ -1,5 +1,8 @@
 """The CUDA kernels on the card against their plain versions: bit for bit,
-except flash attention (K7), held within a stated tolerance.
+except flash attention (K7), held within a stated tolerance.  The LM
+stack (no kernel of its own) on the card against the CPU port on the same
+weights: bf16 within an rms ratio of 2e-2, a float32 MoE layer with
+identical routing.
 
 Marked ``cuda``: each test skips with a reason where there is no CUDA
 device (the kernels have no CPU mode).  This file imports neither JAX nor
@@ -900,3 +903,87 @@ def test_dryrun_cell_on_the_card(dev, tmp_path):
     for phase in ("push", "pull"):
         assert rec[phase]["memory"]["peak_bytes"] > 0
         assert rec[phase]["per_device"]["bytes"] > 0
+
+
+# -- the LM stack: the card against the CPU port, on the same weights ---------
+
+def _lm_batch(cfg, b=2, s=16, enc=8, seed=0):
+    rng = np.random.default_rng(seed)
+    batch = {"labels": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (b, s), dtype=np.int32))}
+    if cfg.frontend == "vision_stub":
+        batch["embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, s, cfg.d_model), dtype=np.float32)).to(torch.bfloat16)
+    else:
+        batch["tokens"] = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (b, s), dtype=np.int32))
+    if cfg.frontend == "audio_stub":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, enc, cfg.d_model), dtype=np.float32)).to(torch.bfloat16)
+    return batch
+
+
+def _rms_ratio(got, want) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).pow(2).mean().sqrt()
+                 / want.pow(2).mean().sqrt().clamp(min=1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["llava-next-34b", "phi3.5-moe-42b-a6.6b",
+                                  "qwen3-moe-30b-a3b", "whisper-small",
+                                  "mamba2-370m", "llama3-8b",
+                                  "h2o-danube-1.8b", "gemma3-4b",
+                                  "llama3.2-3b", "recurrentgemma-2b"])
+def test_lm_reduced_on_card_equals_cpu_port(dev, name):
+    """bf16 weights from a CPU generator, copied to the card: the loss
+    within 1e-2 and 4 ``serve_step`` positions' logits at an rms ratio of
+    at most 2e-2 against the CPU port's."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import transformer as tt
+    cfg = get_reduced_config(name)
+    cpu = tt.init_params(cfg, torch.Generator().manual_seed(0))
+    card = tt.init_params(cfg, torch.Generator().manual_seed(0)).to(dev)
+    batch = _lm_batch(cfg)
+    with torch.no_grad():
+        want, _ = tt.loss_fn(cpu, cfg, batch)
+        got, _ = tt.loss_fn(card, cfg, {k: v.to(dev)
+                                        for k, v in batch.items()})
+        assert abs(float(got) - float(want)) <= 1e-2
+        caches = {d.type: tt.init_decode_state(cfg, 2, 8, enc_len=8,
+                                               device=d)
+                  for d in (torch.device("cpu"), dev)}
+        tokens = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (4, 2), dtype=np.int32))
+        for pos in range(4):
+            lw, caches["cpu"] = tt.serve_step(cpu, cfg, caches["cpu"],
+                                              tokens[pos], pos)
+            lg, caches["cuda"] = tt.serve_step(card, cfg, caches["cuda"],
+                                               tokens[pos].to(dev), pos)
+            assert bool(torch.isfinite(lg).all())
+            assert _rms_ratio(lg, lw) <= 2e-2, pos
+
+
+@pytest.mark.cuda
+def test_moe_layer_on_card_routes_as_cpu(dev):
+    """One float32 MoE layer (qwen3-moe's reduced widths, 256 tokens):
+    the same top-k indices and drops, outputs within 1e-4 + 1e-4·|want|."""
+    from repro_torch.models import moe
+    p = moe.MoE(64, 48, 8, torch.float32)
+    p.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 128, 64), dtype=np.float32))
+    kw = dict(top_k=4, capacity_factor=1.0, chunk=64)
+    with torch.no_grad():
+        pc = moe.MoE(64, 48, 8, torch.float32, dev)
+        pc.load_state_dict(p.state_dict())
+        idx_w, kept_w = moe.routing(x, p, **kw)
+        idx_g, kept_g = moe.routing(x.to(dev), pc, **kw)
+        assert torch.equal(idx_g.cpu(), idx_w)
+        assert torch.equal(kept_g.cpu(), kept_w)
+        assert 0 < int((~kept_w).sum())
+        want, aux_w = moe.moe_forward(x, p, **kw)
+        got, aux_g = moe.moe_forward(x.to(dev), pc, **kw)
+    assert bool(((got.cpu() - want).abs()
+                 <= 1e-4 + 1e-4 * want.abs()).all())
+    assert abs(float(aux_g) - float(aux_w)) <= 1e-4 + 1e-4 * abs(float(aux_w))
