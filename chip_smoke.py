@@ -120,6 +120,25 @@ them.  Phases, each failing the run on any error:
       layer's ``moe_forward`` in float32 on its prefill input, on the
       card and on the CPU: the same top-k indices, the same drops,
       outputs within 1e-4 + 1e-4·|want|;
+  (u) LM training (``repro_torch.optim``, ``train``, ``ckpt``,
+      ``launch.train``; no kernel): (u1) each of the ten reduced configs
+      takes 3 float32 ``train_step_fn`` steps on ``make_batch`` data
+      (llama3.2's with 2 microbatches) on the card and on the CPU from
+      one init: total_loss and grad_norm each step, every parameter, m
+      and v within their stated bounds; (u2) the training entry point,
+      ``launch.train.train`` of llama3.2-3b at full width (28 layers, d
+      3072, GQA 24/8, d_ff 8192, vocab 128256, 3.2126e9 parameters;
+      bf16 weights, remat) for 6 steps of 2 x 2048 tokens in 2
+      microbatches: each step's loss and grad_norm (finite), the median
+      step seconds of steps 2-6, tokens/s, 8·N·tokens a second as a share
+      of the bf16 peak, the peak memory allocated; then one full-width
+      layer's float32 grads on the card against the CPU port's; (u3)
+      ``examples/train_lm_torch.py`` (example-100m, 12 x 768) for 200
+      steps with a checkpoint every 100 and failures at steps 20 (before
+      any checkpoint) and 120, in a temporary directory: two restarts,
+      the replayed steps' losses against the first pass's, the final
+      loss below the first and the last 20 steps' mean below the first
+      20's;
   (s) the step analysis, the dry-run and the analytic model: (s1) (d)'s
       wave (its roots, ``MultiSourceBFSRunner``) and one (h) root counted
       by ``launch.step_analysis.StepAnalysis`` on the card: FLOPs, bytes,
@@ -147,11 +166,14 @@ them.  Phases, each failing the run on any error:
   (g) with --profile only: device time by kernel and the device's idle
       share over one wave of each plan at --batch, over one
       single-source root of (h) and over (r1)'s warm wave
-      (torch.profiler).
+      (torch.profiler); one warm train step of (u2)'s llama3.2-3b and
+      of (u3)'s example-100m, with its forward, backward and AdamW
+      timed apart.
 
 Before the ``kernels`` line, one ``serving`` JSON line carries (p)'s and
 (q)'s numbers, one ``distributed`` JSON line (r)'s, one ``analysis``
-JSON line (s)'s and one ``lm`` JSON line (t)'s.  The last line
+JSON line (s)'s, one ``lm`` JSON line (t)'s and one ``train`` JSON
+line (u)'s.  The last line
 of standard output is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -2598,6 +2620,278 @@ def phase_lm(seed: int, dev, card: str) -> dict:
     return dict(card=card, phase_s=phase_s, t1=t1, t2=t2, t3=t3)
 
 
+# -- (u) LM training -----------------------------------------------------------
+
+# (u1) card against the CPU port, float32, after TRAIN_STEPS steps (as
+# tests/test_torch_train.py holds the port against the reference):
+TRAIN_STEPS = 3
+TRAIN_LOSS = 1e-4        # |card - cpu| <= 1e-4 + 1e-4·|cpu|, each step's
+TRAIN_NORM = 1e-4        # grad_norm, relatively
+TRAIN_MOMENTS = 1e-3     # m, v: max |card - cpu| <= 1e-3·max|cpu| a leaf
+# parameters: |card - cpu| <= 2·(lr_1 + ... + lr_k) (a sign flip of the
+# normalised step where g ~ 0 moves an element up to 2·lr a step)
+TRAIN_BATCH, TRAIN_SEQ = 2, 16
+FULL_RUN = dict(arch="llama3.2-3b", reduced=False, steps=6, global_batch=2,
+                seq_len=2048, microbatches=2)
+LAYER_SEQ = 256          # (u2)'s float32 layer check: 1 x 256 tokens
+LAYER_TOL = 1e-3         # max |card - cpu| <= 1e-3·max|cpu| a tensor
+# (u3): the synthetic next token is uniform given the past, so the loss can
+# only fall from about 10.52 (random logits) towards ln 32000 = 10.37, and
+# slowly: flat over the first 100 steps (lr warmup), 0.016 lower over steps
+# 180-199 than over 0-19, against a batch-to-batch spread of 0.012.  200
+# steps make the fall show; the failure at 20 comes before any checkpoint
+# (a restart from the seed), the one at 120 after the checkpoint of 100.
+EXAMPLE_RUN = dict(steps=200, ckpt_every=100, inject_failures=(20, 120))
+LOSS_WINDOW = 20         # mean of the last 20 steps' losses below the first 20's
+REPLAY_LOSS = 5e-3       # |replayed - first pass| of a logged loss
+
+
+def train_run(cfg, name: str, params, dev, microbatches: int) -> tuple:
+    """``TRAIN_STEPS`` steps of ``train_step_fn`` from ``params`` on
+    ``launch.train``'s data; (state in the reference's layout, metrics)."""
+    from repro_torch.ckpt.checkpoint import snapshot
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.train import RunConfig, data_config
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import TrainConfig, train_step_fn
+    state = {"params": params, "opt": adamw.init_state(params)}
+    dcfg = data_config(cfg, RunConfig(arch=name, global_batch=TRAIN_BATCH,
+                                      seq_len=TRAIN_SEQ))
+    tcfg = TrainConfig(microbatches=microbatches)
+    metrics = []
+    for step in range(TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in make_batch(dcfg, step).items()}
+        state, m = train_step_fn(cfg, tcfg, state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return snapshot(state)[0], metrics
+
+
+def train_reduced(name: str, seed: int, dev) -> dict:
+    """(u1) one reduced config: ``TRAIN_STEPS`` float32 steps on the card
+    and on the CPU from one init; every parameter, m, v, grad_norm and
+    total_loss against the CPU's."""
+    cfg = get_reduced_config(name)
+    params = tt.init_params(cfg, torch.Generator().manual_seed(seed),
+                            torch.float32)
+    card_params = tt.init_params(cfg, torch.Generator().manual_seed(seed),
+                                 torch.float32).to(dev)
+    nm = 2 if name == "llama3.2-3b" else 1
+    want, wm = train_run(cfg, name, params, "cpu", nm)
+    got, gm = train_run(cfg, name, card_params, dev, nm)
+    lr_sum = sum(m["lr"] for m in wm)
+    r = dict(microbatches=nm, loss=[m["total_loss"] for m in gm],
+             loss_err=0.0, norm_err=0.0, param_err=0.0, m_err=0.0,
+             v_err=0.0, lr_sum=lr_sum)
+    bad = []
+    for g, w in zip(gm, wm):
+        err = abs(g["total_loss"] - w["total_loss"])
+        r["loss_err"] = max(r["loss_err"], err)
+        if err > TRAIN_LOSS + TRAIN_LOSS * abs(w["total_loss"]):
+            bad.append(("total_loss", g["total_loss"], w["total_loss"]))
+        err = abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+        r["norm_err"] = max(r["norm_err"], err)
+        if err > TRAIN_NORM or not np.isfinite(g["grad_norm"]):
+            bad.append(("grad_norm", g["grad_norm"], w["grad_norm"]))
+    for k, w in want.items():
+        g = got[k]
+        if w.dtype.kind != "f":
+            if not np.array_equal(g, w):
+                bad.append((k, g, w))
+            continue
+        err = float(np.abs(g - w).max())
+        if k.startswith("params/"):
+            r["param_err"] = max(r["param_err"], err)
+            ok = err <= 2 * lr_sum
+        else:
+            rel = err / max(float(np.abs(w).max()), 1e-30)
+            which = "m_err" if k.startswith("opt/m/") else "v_err"
+            r[which] = max(r[which], rel)
+            ok = rel <= TRAIN_MOMENTS
+        if not ok or not np.isfinite(g).all():
+            bad.append((k, err))
+    if bad:
+        raise AssertionError(f"(u1) {name}: card against the CPU port "
+                             f"outside its tolerance: {bad[:4]}")
+    return r
+
+
+class _Durations:
+    """Records every step's unrounded seconds beside ``StepTimer``."""
+
+    def __init__(self):
+        self.seconds: list[float] = []
+
+    @contextlib.contextmanager
+    def on(self, module):
+        orig = module.StepTimer
+        seconds = self.seconds
+
+        class Timer(orig):
+            def record(self, step, secs):
+                seconds.append(secs)
+                return super().record(step, secs)
+
+        module.StepTimer = Timer
+        try:
+            yield self
+        finally:
+            module.StepTimer = orig
+
+
+def layer_grads(layer, cfg, x, w) -> list:
+    """float32 grads of sum(layer(x) * w) for x and every parameter."""
+    x = x.clone().requires_grad_(True)
+    pos = torch.arange(x.shape[1], device=x.device)
+    out, _ = layer(x, pos, cfg)
+    leaves = [x] + list(layer.parameters())
+    return [g.cpu() for g in torch.autograd.grad((out * w).sum(), leaves)]
+
+
+def train_full(seed: int, dev) -> dict:
+    """(u2) llama3.2-3b at full width through ``launch.train.train``
+    (bf16 weights, remat, 2 microbatches); then one full-width layer's
+    float32 grads on the card against the CPU port's."""
+    from repro_torch.launch import train as T
+    cfg = get_config(FULL_RUN["arch"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with _Durations().on(T) as durations:
+        out = T.train(T.RunConfig(seed=seed, **FULL_RUN))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.empty_cache()
+    secs = durations.seconds
+    step_s = statistics.median(secs[1:])
+    tokens = FULL_RUN["global_batch"] * FULL_RUN["seq_len"]
+    n = cfg.param_count()
+    flops = 8 * n * tokens                 # fwd 2 + bwd 4 + remat's fwd 2
+    losses = [r["loss"] for r in out["log"]]
+    norms = [r["grad_norm"] for r in out["log"]]
+    finite = bool(np.isfinite(losses).all() and np.isfinite(norms).all()
+                  and np.isfinite(secs).all())
+    # one layer in float32, the card against the CPU port
+    gen = torch.Generator().manual_seed(seed)
+    layer = tt.AttentionLayer("attn", cfg, torch.float32)
+    layer.reset_parameters(gen)
+    x = torch.randn((1, LAYER_SEQ, cfg.d_model), generator=gen)
+    w = torch.randn((1, LAYER_SEQ, cfg.d_model), generator=gen)
+    want = layer_grads(layer, cfg, x, w)
+    got = layer_grads(layer.to(dev), cfg, x.to(dev), w.to(dev))
+    rel = max(float((g - h).abs().max()) / float(h.abs().max())
+              for g, h in zip(got, want))
+    rms = max(rms_ratio(g, h) for g, h in zip(got, want))
+    del layer, got, want
+    torch.cuda.empty_cache()
+    r = dict(out={k: v for k, v in out.items() if k != "log"},
+             layers=cfg.num_layers, d_model=cfg.d_model,
+             heads=(cfg.num_heads, cfg.num_kv_heads), d_ff=cfg.d_ff,
+             vocab=cfg.vocab_size, param_count=n, remat=cfg.remat,
+             losses=losses, grad_norms=norms, step_seconds=secs,
+             median_step_s=step_s, tokens_per_step=tokens,
+             tokens_per_s=tokens / step_s, model_flops=flops,
+             model_flops_per_s=flops / step_s,
+             mfu=flops / step_s / H100.peak_bf16, peak_bytes=peak,
+             base_bytes=base, wall_s=wall, layer_grad_rel=rel,
+             layer_grad_rms=rms, finite=finite)
+    if not finite or rel > LAYER_TOL or out["steps"] != FULL_RUN["steps"]:
+        raise AssertionError(f"(u2) llama3.2-3b: finite {finite}, layer "
+                             f"grads {rel} (limit {LAYER_TOL}), {out}")
+    return r
+
+
+def example_module():
+    """``examples/train_lm_torch.py`` of this checkout, imported."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / "train_lm_torch.py"
+    spec = importlib.util.spec_from_file_location("train_lm_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    return example
+
+
+def train_example(dev) -> dict:
+    """(u3) ``examples/train_lm_torch.py`` (example-100m, 12 x 768) on the
+    card with checkpoints and two injected failures, in a temporary
+    directory removed afterwards; the replayed steps against the first
+    pass, and the loss falling."""
+    example = example_module()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = example.run(ckpt_dir=tmp, log_every=1, **EXAMPLE_RUN)
+        ckpts = sorted(os.listdir(tmp))
+    wall = time.perf_counter() - t0
+    first: dict = {}
+    replay_err = 0.0
+    replayed = 0
+    for rec in out["log"]:
+        if rec["step"] in first:
+            replayed += 1
+            replay_err = max(replay_err,
+                             abs(rec["loss"] - first[rec["step"]]))
+        else:
+            first[rec["step"]] = rec["loss"]
+    by_step = [first[s] for s in sorted(first)]
+    r = dict(params=example.EXAMPLE_100M.param_count(),
+             out={k: v for k, v in out.items() if k != "log"},
+             checkpoints=ckpts, replayed=replayed, replay_err=replay_err,
+             first_mean=float(np.mean(by_step[:LOSS_WINDOW])),
+             last_mean=float(np.mean(by_step[-LOSS_WINDOW:])), wall_s=wall)
+    if not (out["restarts"] == len(EXAMPLE_RUN["inject_failures"])
+            and replayed > 0 and replay_err <= REPLAY_LOSS
+            and out["final_loss"] < out["first_loss"]
+            and r["last_mean"] < r["first_mean"]):
+        raise AssertionError(f"(u3) {r}")
+    return r
+
+
+def phase_train(seed: int, dev, card: str) -> dict:
+    """(u) LM training on the card: (u1) the ten reduced configs against
+    the CPU port, (u2) llama3.2-3b at full width, (u3) checkpoint and
+    restart."""
+    t_phase = time.perf_counter()
+    u1 = {}
+    for name in ARCH_NAMES:
+        u1[name] = r = train_reduced(name, seed, dev)
+        log(f"(u1) {name}: {TRAIN_STEPS} float32 steps (microbatches "
+            f"{r['microbatches']}), losses "
+            f"{', '.join(f'{x:.5f}' for x in r['loss'])}; card against the "
+            f"CPU port: loss {r['loss_err']:.3g}, grad_norm "
+            f"{r['norm_err']:.3g} rel, params {r['param_err']:.3g} (limit "
+            f"{2 * r['lr_sum']:.3g}), m {r['m_err']:.3g}, v "
+            f"{r['v_err']:.3g} rel (limit {TRAIN_MOMENTS})")
+    u2 = train_full(seed, dev)
+    log(f"(u2) launch.train llama3.2-3b full width ({u2['layers']} layers, "
+        f"d {u2['d_model']}, GQA {u2['heads'][0]}/{u2['heads'][1]}, d_ff "
+        f"{u2['d_ff']}, vocab {u2['vocab']}, {u2['param_count']:.5g} "
+        f"params, remat {u2['remat']}) batch {FULL_RUN['global_batch']} x "
+        f"{FULL_RUN['seq_len']}, {FULL_RUN['microbatches']} microbatches: "
+        f"losses {u2['losses']}, grad_norms {u2['grad_norms']}; step "
+        f"seconds {', '.join(f'{x:.4f}' for x in u2['step_seconds'])}, "
+        f"median of steps 2-{FULL_RUN['steps']} {u2['median_step_s']:.4f} "
+        f"s, {u2['tokens_per_s']:.1f} tokens/s, 8*N*tokens "
+        f"{u2['model_flops_per_s'] / 1e12:.2f} TFLOP/s = {u2['mfu']:.4f} "
+        f"of the bf16 peak; peak {u2['peak_bytes'] / 1e9:.3f} GB allocated "
+        f"({u2['base_bytes'] / 1e9:.3f} GB held before); one float32 layer's "
+        f"grads card against CPU {u2['layer_grad_rel']:.3g} of max (limit "
+        f"{LAYER_TOL}), rms {u2['layer_grad_rms']:.3g}; finite; {card}")
+    u3 = train_example(dev)
+    log(f"(u3) example-100m ({u3['params'] / 1e6:.1f}M params) "
+        f"{EXAMPLE_RUN['steps']} steps, checkpoints every "
+        f"{EXAMPLE_RUN['ckpt_every']}, failures at "
+        f"{EXAMPLE_RUN['inject_failures']}: {u3['out']}; {u3['replayed']} "
+        f"replayed steps within {u3['replay_err']:.3g} of the first pass "
+        f"(limit {REPLAY_LOSS}); mean loss of the first / last "
+        f"{LOSS_WINDOW} steps {u3['first_mean']:.5f} / "
+        f"{u3['last_mean']:.5f}; {u3['wall_s']:.2f} s")
+    phase_s = time.perf_counter() - t_phase
+    log(f"(u) {phase_s:.2f}s")
+    return dict(card=card, phase_s=phase_s, u1=u1, u2=u2, u3=u3)
+
+
 def profile_device(label: str, run, top: int = 12,
                    keep: tuple = ("propagate_", "whole_")) -> None:
     """Device time by kernel name over one call of ``run`` (warm, ending in
@@ -2633,6 +2927,57 @@ def profile_device(label: str, run, top: int = 12,
     for ms, count, key in shown:
         log(f"(g)   {ms:9.3f} ms {100 * ms / busy:5.1f}% x{count:<5d} "
             f"{key[:90]}")
+
+
+def profile_train(seed: int, dev) -> None:
+    """(g) One warm train step of (u2)'s llama3.2-3b and of (u3)'s
+    example-100m on the card (torch.profiler), and its forward, backward
+    and AdamW timed apart (each to a device sync)."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.train import RunConfig, data_config
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import (TrainConfig, init_train_state,
+                                        train_step_fn)
+    for run in (FULL_RUN, dict(arch="example-100m", global_batch=8,
+                               seq_len=256, microbatches=2)):
+        cfg = get_config(run["arch"]) if run is FULL_RUN else (
+            example_module().EXAMPLE_100M)
+        state = init_train_state(cfg, torch.Generator(dev).manual_seed(seed))
+        dcfg = data_config(cfg, RunConfig(arch=cfg.name,
+                                          global_batch=run["global_batch"],
+                                          seq_len=run["seq_len"]))
+        tcfg = TrainConfig(microbatches=run["microbatches"])
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in make_batch(dcfg, 0).items()}
+
+        def step():
+            nonlocal state
+            state, m = train_step_fn(cfg, tcfg, state, batch)
+            return float(m["total_loss"])
+
+        for _ in range(2):                             # warm-up
+            step()
+        profile_device(f"{cfg.name} train step", step, top=12)
+        named = dict(state["params"].named_parameters())
+        marks = [time.perf_counter()]
+        loss, _ = tt.loss_fn(state["params"], cfg, batch)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        grads = torch.autograd.grad(loss, list(named.values()))
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        grads = {k: g.float() for k, g in zip(named, grads)}
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        adamw.apply_updates(state["params"], grads, state["opt"],
+                            adamw.AdamWConfig())
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        log(f"(g) {cfg.name} one batch of {dcfg.global_batch} x "
+            f"{dcfg.seq_len}: forward {marks[1] - marks[0]:.4f} s, backward "
+            f"{marks[2] - marks[1]:.4f} s, AdamW {marks[4] - marks[3]:.4f} s")
+        del state, grads, loss, named
+        torch.cuda.empty_cache()
 
 
 def phase_profile(graph: str, batch: int, seed: int, dev, tile_rows) -> None:
@@ -2751,6 +3096,8 @@ def main(argv=None) -> int:
     real["flash_attention"] = phase_flash(args.seed, dev)
     # (t) the LM stack (it launches none of the seven kernels)
     lm = phase_lm(args.seed, dev, card)
+    # (u) LM training (no kernel either)
+    train = phase_train(args.seed, dev, card)
 
     # each kernel's launches on its own path
     counts = {
@@ -2772,6 +3119,7 @@ def main(argv=None) -> int:
         for tr in (ops._auto_tile_rows(-(-args.batch // 32)), 0):
             phase_profile(args.graph, args.batch, args.seed, dev, tr)
         phase_profile_sbfs(g, keys)
+        profile_train(args.seed, dev)
 
     # (f) summary
     kernels = []
@@ -2795,6 +3143,7 @@ def main(argv=None) -> int:
     log(json.dumps({"distributed": distributed}))
     log(json.dumps({"analysis": analysis}))
     log(json.dumps({"lm": lm}))
+    log(json.dumps({"train": train}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,2 @@
+"""Checkpoints in the reference's on-disk format (port of
+``repro.ckpt``)."""

@@ -12,6 +12,9 @@ The process group is the caller's: start one with
 a CPU mesh) before :func:`make_mesh`, which never starts one itself.
 :func:`make_production_mesh` is the one exception: the dry-run's 256- or
 512-rank mesh over a *fake* process group, run by one process as rank 0.
+:func:`make_test_mesh` is the reference's small local mesh: over the
+group's ranks when one is started, else a :class:`LocalMesh` of this one
+process.
 
 :func:`use_mesh` makes a mesh ambient for the code it wraps, and
 :func:`get_abstract_mesh` reads it (None outside), as
@@ -117,6 +120,47 @@ def make_production_mesh(*, multi_pod: bool = False,
                          f"of {world} ranks, this one is "
                          f"{dist.get_backend()} of {dist.get_world_size()}")
     return init_device_mesh(dev_type, shape, mesh_dim_names=axes)
+
+
+class LocalMesh:
+    """A mesh of one rank that needs no process group: the
+    ``(pod, data, model) = (1, 1, 1)`` mesh of a single process.  It has
+    the parts of ``DeviceMesh`` the port reads (``mesh_dim_names``,
+    ``shape``, ``device_type``, ``size``, ``get_local_rank``), and no
+    collective runs over it."""
+
+    def __init__(self, axis_names=("pod", "data", "model"), device=None):
+        self.mesh_dim_names = tuple(axis_names)
+        self.shape = (1,) * len(self.mesh_dim_names)
+        self.device_type = resolve_device(device).type
+
+    def size(self, mesh_dim: int | None = None) -> int:
+        return 1
+
+    def get_local_rank(self, mesh_dim=None) -> int:
+        return 0
+
+
+def make_test_mesh(num_devices: int | None = None, device=None):
+    """Small local mesh over ``num_devices`` ranks (default: the started
+    process group's world size, or 1 when none is started), factored into
+    ``(pod, data, model)`` greedily, as the reference's.  One rank is a
+    :class:`LocalMesh`; more go through :func:`make_mesh` and need a
+    started group of that size.  ``device`` as :func:`make_mesh`'s."""
+    started = dist.is_available() and dist.is_initialized()
+    n = num_devices or (dist.get_world_size() if started else 1)
+    if n == 1:
+        return LocalMesh(device=device)
+    # factor n into (pod, data, model) greedily
+    pod = 2 if n % 2 == 0 and n > 4 else 1
+    rem = n // pod
+    model = 1
+    for m in (4, 2):
+        if rem % m == 0:
+            model = m
+            break
+    data = rem // model
+    return make_mesh((pod, data, model), ("pod", "data", "model"), device)
 
 
 def mesh_device(mesh: DeviceMesh) -> torch.device:

@@ -1,0 +1,221 @@
+"""Sharding rules: parameters, optimizer state, batches, decode caches
+(port of ``repro.launch.shardings``).
+
+Auto-spec assigns mesh axes to tensor dims from an ordered preference list,
+skipping any assignment that does not divide evenly (so GQA kv-heads fall
+back to head_dim TP, batch=1 falls back to sequence sharding, etc.).
+
+A spec is a tuple with one entry a dim, each a mesh axis name, a tuple of
+names or None: the entries of the reference's ``PartitionSpec``.  The
+rules are the reference's, over a ``{axis: size}`` dict.  The reference
+stacks a segment's parameters ``[count, ...]``; the port keeps one tensor
+a layer, so :func:`param_shardings` computes each spec on the stacked
+shape (dims counted from the end, so the count dim takes no axis) and
+gives the layer's tensor the spec without its leading entry.
+
+Placement: a :class:`NamedSharding` holds its mesh and spec, and
+:func:`place` moves a tensor to the mesh's device.  On one rank that is
+all a sharding does, as ``models.psharding.constrain`` returns its input;
+a spec that splits a tensor across ranks is refused (the port runs no
+sharded training).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.launch.mesh import mesh_device
+from repro_torch.models.psharding import mesh_axes
+from repro_torch.models.transformer import reference_path
+
+DP_AXES = ("pod", "data")
+TP_AXIS = "model"
+
+
+def _axes_size(mesh_shape: dict, axes: tuple[str, ...]) -> int:
+    return int(np.prod([mesh_shape.get(a, 1) for a in axes]))
+
+
+def pick_spec(shape: tuple[int, ...], prefs: list[tuple[int, tuple[str, ...]]],
+              mesh_shape: dict) -> tuple:
+    """Assign mesh axes to dims by priority, honoring divisibility."""
+    spec: list[Any] = [None] * len(shape)
+    used: set[str] = set()
+    for dim, axes in prefs:
+        axes = tuple(a for a in axes if a in mesh_shape)
+        if not axes or any(a in used for a in axes) or dim >= len(shape):
+            continue
+        if spec[dim] is not None:
+            continue
+        if shape[dim] % _axes_size(mesh_shape, axes) != 0:
+            continue
+        spec[dim] = axes if len(axes) > 1 else axes[0]
+        used.update(axes)
+    return tuple(spec)
+
+
+# preference tables keyed by parameter leaf name; dims are offsets from the
+# *end* of the shape so stacked [count, ...] segment params reuse the rules.
+_PARAM_PREFS = {
+    # attention projections [d, h|hkv, hd]: heads -> head_dim -> fsdp(d)
+    "wq": [(-2, (TP_AXIS,)), (-1, (TP_AXIS,)), (-3, ("data",))],
+    "wk": [(-2, (TP_AXIS,)), (-1, (TP_AXIS,)), (-3, ("data",))],
+    "wv": [(-2, (TP_AXIS,)), (-1, (TP_AXIS,)), (-3, ("data",))],
+    "wo": [(-3, (TP_AXIS,)), (-2, (TP_AXIS,)), (-1, ("data",))],
+    # MLP [d, f] / [f, d]
+    "w_gate": [(-1, (TP_AXIS,)), (-2, ("data",))],
+    "w_up": [(-1, (TP_AXIS,)), (-2, ("data",))],
+    "w_down": [(-2, (TP_AXIS,)), (-1, ("data",))],
+    # embedding [V, d]: vocab TP + fsdp on d
+    "embed": [(-2, (TP_AXIS,)), (-1, ("data",))],
+    # ssm / rglru projections [d, p]; per-stream mamba2 weights shard their
+    # own output dims (B/C/dt streams are small -> replicate)
+    "in_proj": [(-1, (TP_AXIS,)), (-2, ("data",))],
+    "w_z": [(-1, (TP_AXIS,)), (-2, ("data",))],
+    "w_xin": [(-1, (TP_AXIS,)), (-2, ("data",))],
+    "w_b": [(-2, ("data",))],
+    "w_c": [(-2, ("data",))],
+    "w_dt": [(-1, (TP_AXIS,))],
+    "conv_wx": [(-1, (TP_AXIS,))],
+    "conv_bx": [(-1, (TP_AXIS,))],
+    "out_proj": [(-2, (TP_AXIS,)), (-1, ("data",))],
+    "w_x": [(-1, (TP_AXIS,)), (-2, ("data",))],
+    "w_gate_branch": [(-1, (TP_AXIS,)), (-2, ("data",))],
+    "w_r": [(-1, (TP_AXIS,))],
+    "w_i": [(-1, (TP_AXIS,))],
+    "w_out": [(-2, (TP_AXIS,)), (-1, ("data",))],
+    "conv_w": [(-1, (TP_AXIS,))],
+    "conv_b": [(-1, (TP_AXIS,))],
+    "router": [],
+}
+
+_MOE_PREFS = {
+    # expert-parallel stacks [E, d, f] / [E, f, d]
+    "w_gate": [(-3, (TP_AXIS,)), (-2, ("data",))],
+    "w_up": [(-3, (TP_AXIS,)), (-2, ("data",))],
+    "w_down": [(-3, (TP_AXIS,)), (-2, ("data",))],
+}
+
+
+def param_pspec(path, leaf, mesh_shape: dict) -> tuple:
+    """The spec of a parameter leaf (anything with ``.shape``) at ``path``,
+    the reference's key names (``("segments", "[0]", "attn", "wq")``)."""
+    names = [str(k) for k in path]
+    leaf_name = names[-1]
+    in_moe = "moe" in names
+    table = _MOE_PREFS if (in_moe and leaf_name in _MOE_PREFS) else _PARAM_PREFS
+    prefs = table.get(leaf_name, [])
+    nd = len(leaf.shape)
+    prefs_abs = [(nd + d if d < 0 else d, a) for d, a in prefs
+                 if -nd <= d < nd]
+    return pick_spec(tuple(leaf.shape), prefs_abs, mesh_shape)
+
+
+def _param_specs(named: dict, mesh_shape: dict) -> dict[str, tuple]:
+    """Each parameter's spec: the reference's spec of its stacked leaf,
+    less the stack's dim for a layer's tensor."""
+    counts: dict[tuple, int] = {}
+    for name in named:
+        path, layer = reference_path(name)
+        if layer is not None:
+            counts[path] = max(counts.get(path, 0), layer + 1)
+    specs = {}
+    for name, t in named.items():
+        path, layer = reference_path(name)
+        if layer is None:
+            specs[name] = param_pspec(path, t, mesh_shape)
+            continue
+        stacked = param_pspec(path, torch.empty(
+            (counts[path], *t.shape), device="meta"), mesh_shape)
+        if stacked[0] is not None:
+            raise ValueError(f"{name}: the stacked spec {stacked} shards "
+                             "the layer dim")
+        specs[name] = stacked[1:]
+    return specs
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a spec (the reference's ``NamedSharding``)."""
+    mesh: Any
+    spec: tuple
+
+    @property
+    def device(self) -> torch.device:
+        return mesh_device(self.mesh)
+
+
+def place(t: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """``t`` on the sharding's device.  A spec that splits ``t`` over more
+    than one rank raises: the port keeps whole tensors on each rank."""
+    sizes = mesh_axes(sharding.mesh)
+    for entry in sharding.spec:
+        axes = (entry,) if isinstance(entry, str) else (entry or ())
+        if math.prod(sizes.get(a, 1) for a in axes) > 1:
+            raise NotImplementedError(
+                f"spec {sharding.spec} splits a tensor across ranks")
+    return t.to(sharding.device)
+
+
+def param_shardings(abstract_tree, mesh):
+    """A :class:`NamedSharding` a parameter name of ``abstract_tree`` (an
+    ``LM``, or a name -> tensor mapping such as the optimizer's ``m``);
+    None for None."""
+    if abstract_tree is None:
+        return None
+    if isinstance(abstract_tree, nn.Module):
+        abstract_tree = dict(abstract_tree.named_parameters())
+    specs = _param_specs(abstract_tree, mesh_axes(mesh))
+    return {k: NamedSharding(mesh, s) for k, s in specs.items()}
+
+
+def batch_pspec(shape: tuple[int, ...], mesh_shape: dict) -> tuple:
+    """Token/label/embeds batches: batch over (pod, data)."""
+    prefs = [(0, DP_AXES), (0, ("data",))]
+    return pick_spec(shape, prefs, mesh_shape)
+
+
+def batch_shardings(batch_tree: dict, mesh) -> dict:
+    mesh_shape = mesh_axes(mesh)
+    return {k: NamedSharding(mesh, batch_pspec(tuple(v.shape), mesh_shape))
+            for k, v in batch_tree.items()}
+
+
+def cache_pspec(shape: tuple[int, ...], mesh_shape: dict,
+                seq_axis_joint: bool = False) -> tuple:
+    """Decode caches.
+
+    KV tensors are [count, B, L, hkv, hd]; ssm/rglru states are
+    [count, B, ...].  Batch gets (pod, data) when divisible; the longest
+    remaining dim gets `model` (KV length / state width).
+    """
+    nd = len(shape)
+    prefs: list[tuple[int, tuple[str, ...]]] = []
+    if nd >= 2:
+        prefs.append((1, DP_AXES))
+        prefs.append((1, ("data",)))
+    if nd >= 3:
+        # the sequence / width dim: prefer the largest dim after batch
+        cand = int(np.argmax(shape[2:])) + 2
+        if seq_axis_joint:
+            prefs.append((cand, (TP_AXIS, "data")))
+        prefs.append((cand, (TP_AXIS,)))
+    return pick_spec(shape, prefs, mesh_shape)
+
+
+def cache_shardings(cache_tree: list, mesh, seq_axis_joint: bool = False
+                    ) -> list:
+    """One dict of :class:`NamedSharding` a segment, as the caches."""
+    mesh_shape = mesh_axes(mesh)
+    return [{k: NamedSharding(mesh, cache_pspec(tuple(v.shape), mesh_shape,
+                                                seq_axis_joint))
+             for k, v in seg.items()} for seg in cache_tree]
+
+
+def replicated(mesh) -> NamedSharding:
+    return NamedSharding(mesh, ())

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -227,6 +228,18 @@ class LM(nn.Module):
         normal_(self.embed, generator, 0.02)
 
 
+def reference_path(name: str) -> tuple[tuple[str, ...], int | None]:
+    """The reference's key path of an ``LM`` parameter name and the
+    layer's index in its segment's stack: ``segments.i.j.a.b`` is
+    ``(("segments", "[i]", "a", "b"), j)`` (a list index as the
+    reference's tree paths print it), any other name its dotted parts
+    and None."""
+    parts = name.split(".")
+    if parts[0] == "segments" and len(parts) > 3:
+        return ("segments", f"[{parts[1]}]", *parts[3:]), int(parts[2])
+    return tuple(parts), None
+
+
 # ---------------------------------------------------------------------------
 # Parameter init
 # ---------------------------------------------------------------------------
@@ -251,9 +264,17 @@ def abstract_params(cfg: ArchConfig, dtype=torch.bfloat16) -> LM:
 
 def apply_segment_train(kind: str, layers: nn.ModuleList, x, positions,
                         cfg: ArchConfig, enc_out=None):
+    """Run a segment's layers in turn.  With ``cfg.remat`` and grad
+    enabled each layer keeps only its input for the backward pass and
+    recomputes the rest there."""
+    remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in layers:
-        x, a = layer(x, positions, cfg, enc_out)
+        if remat:
+            x, a = checkpoint(layer, x, positions, cfg, enc_out,
+                              use_reentrant=False)
+        else:
+            x, a = layer(x, positions, cfg, enc_out)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -320,10 +341,12 @@ def loss_fn(params: LM, cfg: ArchConfig, batch: dict):
 def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
                       dtype=torch.bfloat16, enc_len: int = 0,
                       device=None) -> list:
-    """Per-segment cache stacks on ``device`` (None = the CUDA card).
+    """Per-segment cache stacks on ``device`` (None = the CUDA card;
+    ``"meta"`` allocates nothing, for shapes alone).
     cache_len = full KV length for global layers; windowed layers get a
     ring of min(window, cache_len)."""
-    dev = resolve_device(device)
+    dev = (torch.device("meta") if str(device) == "meta"
+           else resolve_device(device))
     caches = []
     for kind, count in layer_segments(cfg):
         if kind in ("attn", "attn_local", "attn_global", "moe", "dec"):

@@ -987,3 +987,91 @@ def test_moe_layer_on_card_routes_as_cpu(dev):
     assert bool(((got.cpu() - want).abs()
                  <= 1e-4 + 1e-4 * want.abs()).all())
     assert abs(float(aux_g) - float(aux_w)) <= 1e-4 + 1e-4 * abs(float(aux_w))
+
+
+# -- LM training: the card against the CPU port --------------------------------
+
+def _train(cfg, params, dev, microbatches, steps=2):
+    from repro_torch.ckpt.checkpoint import snapshot
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.train import RunConfig, data_config
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import TrainConfig, train_step_fn
+    state = {"params": params, "opt": adamw.init_state(params)}
+    dcfg = data_config(cfg, RunConfig(arch=cfg.name, global_batch=2,
+                                      seq_len=16))
+    metrics = []
+    for s in range(steps):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in make_batch(dcfg, s).items()}
+        state, m = train_step_fn(cfg, TrainConfig(microbatches=microbatches),
+                                 state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return snapshot(state)[0], metrics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,microbatches", [("llama3.2-3b", 2),
+                                               ("qwen3-moe-30b-a3b", 1)])
+def test_train_step_on_card_equals_cpu_port(dev, name, microbatches):
+    """Two float32 train steps from one init: total_loss within 1e-4 +
+    1e-4·|cpu|, grad_norm within 1e-4 relatively, m and v within
+    1e-3·max|cpu| a leaf, parameters within 2·(lr_1 + lr_2)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import transformer as tt
+    cfg = get_reduced_config(name)
+    init = [tt.init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.float32) for _ in range(2)]
+    want, wm = _train(cfg, init[0], torch.device("cpu"), microbatches)
+    got, gm = _train(cfg, init[1].to(dev), dev, microbatches)
+    for g, w in zip(gm, wm):
+        assert abs(g["total_loss"] - w["total_loss"]) <= (
+            1e-4 + 1e-4 * abs(w["total_loss"]))
+        assert abs(g["grad_norm"] - w["grad_norm"]) <= 1e-4 * w["grad_norm"]
+    lr_sum = sum(m["lr"] for m in wm)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        err = float(np.abs(got[k] - w).max())
+        if k.startswith("params/"):
+            assert err <= 2 * lr_sum, (k, err)
+        elif k.startswith("opt/"):
+            assert err <= 1e-3 * float(np.abs(w).max()), (k, err)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_of_a_card_state(dev, tmp_path):
+    """A bf16 train state on the card after one step: saved, then
+    restored onto the card (through ``state_shardings``) and onto the
+    CPU, with the same bits; the async saver's copy is the state at
+    ``save``."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.transformer import loss_fn
+    from repro_torch.train import step as tstep
+    cfg = get_reduced_config("llama3.2-3b")
+    state = tstep.init_train_state(cfg, torch.Generator(dev).manual_seed(0))
+    batch = {k: torch.zeros((2, 8), dtype=torch.int32, device=dev)
+             for k in ("tokens", "labels")}
+    state, _ = tstep.train_step_fn(cfg, tstep.TrainConfig(), state, batch)
+    want = {k: v.copy() for k, v in ckpt.snapshot(state)[0].items()}
+    saver = ckpt.AsyncCheckpointer(str(tmp_path))
+    saver.save(1, state)
+    state, _ = tstep.train_step_fn(cfg, tstep.TrainConfig(), state, batch)
+    saver.wait()
+    like = tstep.abstract_train_state(cfg)
+    on_card, _ = ckpt.restore(str(tmp_path), 1, like, tstep.state_shardings(
+        like, make_test_mesh(device=dev)))
+    on_cpu, _ = ckpt.restore(str(tmp_path), 1, like)
+    assert all(p.device.type == "cuda"
+               for p in on_card["params"].parameters())
+    assert on_card["opt"]["m"]["embed"].device.type == "cuda"
+    assert all(p.device.type == "cpu" for p in on_cpu["params"].parameters())
+    for restored in (on_card, on_cpu):
+        got = ckpt.snapshot(restored)[0]
+        assert set(got) == set(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype
+            assert np.array_equal(got[k], want[k]), k
+    loss, _ = loss_fn(on_card["params"], cfg, batch)
+    assert bool(torch.isfinite(loss))
