@@ -26,12 +26,19 @@ them.  Phases, each failing the run on any error:
       bound counting what the level's data makes it move, with a work
       estimate and the first design's padded bound beside it; K2's pad
       chunks logged per level, and K2 timed alone at three load widths;
-      the P3 kernels K3/K4 on adversarial word counts, then on the inputs
-      of every level of (h)'s 64 single-source runs (K4 into out= buffers
-      as the runner calls it, with fresh outputs, and alone by graph
-      replay as launched and as the first design's atomics) and of a
-      bool-plane wave (K3); kernel, plain and bound times of each, and
-      the cost of K3's two transposes;
+      the P3 kernels K3 (both forms: the engine's [n, nw] rows and the
+      TPU kernel's planes-major [g, w]) and K4 on adversarial sizes (n
+      1, 31, 127, 129, 8191 rows at nw 1, 2, 3, 4, 5, 8; all-ones and
+      all-zero columns; misaligned views), then on the inputs of every
+      level of (h)'s 64 single-source runs (K4 into out= buffers as the
+      runner calls it, with fresh outputs, and alone by graph replay)
+      and of each call of a bool-plane wave (K3: the new route, the rows
+      form as the engine calls it; the old route, two transposes and the
+      planes-major wrapper; each form alone by graph replay, the rows
+      form also with the L2 flushed first; both routes and forms again
+      on random words at 256 roots' width, beyond the L2); kernel, plain
+      and bound times of each, each K3 line tagged with the card's name
+      and power limit;
   (d) the serving path: ``serve_bfs(graph, batch)`` (warm-up + timed
       wave, auto kernel plan) with launch counts reset just before; every
       plane is validated Graph500-style on the card and 4 roots against a
@@ -781,6 +788,7 @@ def phase_real(g, deg: np.ndarray, graph: str, batch: int, seed: int
 # -- the P3 kernels K3 and K4 ------------------------------------------------
 
 P3_ODD_W = (1, 31, 127, 129, 8191)          # 8191 is prime
+P3_ROWS_NW = (1, 2, 3, 4, 5, 8)             # plane words a row: B up to 256
 
 
 def p3_words(shape, seed: int, dev) -> torch.Tensor:
@@ -794,11 +802,20 @@ def check_p3(kernel, plain, cand, vis, what: str) -> int:
     return assert_same(kernel(cand, vis), plain(cand, vis), what)
 
 
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s words in a contiguous view 4 bytes into its storage (the
+    kernels' scalar path)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    return flat[1:].view(t.shape)
+
+
 def phase_p3_small(n_pad: int, batch: int, dev) -> int:
-    """K4 and K3 against their plain versions on odd and prime word
-    counts, all-ones words, bit 31, 4-byte-misaligned views (the scalar
-    path), and at their real sizes: K4 at n_pad / 32 words, K3 at
-    [ceil(batch / 32), n_pad]."""
+    """K4 and both forms of K3 against their plain versions on odd and
+    prime sizes, all-ones words, bit 31, 4-byte-misaligned views (the
+    scalar path), and at their real sizes: K4 at n_pad / 32 words, K3
+    planes-major at [ceil(batch / 32), n_pad], K3 on the engine's rows at
+    [n_pad, ceil(batch / 32)]."""
     err, cases = 0, 0
     g_real = -(-batch // 32)
     for w in P3_ODD_W + (n_pad // 32,):
@@ -822,22 +839,46 @@ def phase_p3_small(n_pad: int, batch: int, dev) -> int:
                                     ref.bitmap_update_batch_ref, c, v,
                                     f"K3 g={g} w={w}"))
             cases += 1
-    full = torch.full((g_real, n_pad), -1, dtype=torch.int32, device=dev)
-    nf, _, cnt = kbu.bitmap_update_batch(full, torch.zeros_like(full))
-    if not bool((cnt == n_pad * 32).all()) or not torch.equal(nf, full):
-        raise AssertionError("K3 all-ones planes: wrong words or counts")
+    for nw in sorted(set(P3_ROWS_NW) | {g_real}):
+        for n in P3_ODD_W + ((n_pad,) if nw == g_real else ()):
+            c = p3_words((n, nw), 7 * n + nw, dev)
+            v = p3_words((n, nw), 7 * n + nw + 1, dev)
+            c[:, 0], v[:, 0] = -1, 0         # an all-ones column of new
+            if nw > 1:
+                v[:, -1] = -1                # a column with everything seen
+            want = ref.bitmap_update_rows_ref(c, v)
+            got = kbu.bitmap_update_rows(c, v)
+            err = max(err, assert_same(got, want, f"K3 rows n={n} nw={nw}"),
+                      assert_same(kbu.bitmap_update_rows(misaligned(c),
+                                                         misaligned(v)),
+                                  want, f"K3 rows misaligned n={n} nw={nw}"))
+            if int(got[2][0]) != 32 * n:
+                raise AssertionError(f"K3 rows n={n} nw={nw}: all-ones "
+                                     "column miscounted")
+            cases += 2
+    for full in (torch.full((g_real, n_pad), -1, dtype=torch.int32,
+                            device=dev),
+                 torch.full((n_pad, g_real), -1, dtype=torch.int32,
+                            device=dev)):
+        kern = (kbu.bitmap_update_batch if full.shape[0] == g_real
+                else kbu.bitmap_update_rows)
+        nf, _, cnt = kern(full, torch.zeros_like(full))
+        if not bool((cnt == n_pad * 32).all()) or not torch.equal(nf, full):
+            raise AssertionError("K3 all-ones planes: wrong words or counts")
     torch.cuda.synchronize()
     log(f"(c) P3 small cases: {cases} cases + misaligned views + all-ones "
-        "planes, K3 and K4 bit-exact")
+        "planes, K3 (both forms) and K4 bit-exact")
     return err
 
 
 def capture_p3(g, keys: np.ndarray, roots: np.ndarray) -> tuple[list, list]:
     """The inputs of every P3 call of one single-source run from each of
     ``keys`` ((h)'s runs: K4, cloned, since the runner reuses its output
-    sets two levels on) and of one bool-plane wave over ``roots`` (K3)."""
+    sets two levels on) and of one bool-plane wave over ``roots`` (K3's
+    rows form, ``ops.fused_frontier_update_rows``, as the engine calls
+    it: [n_pad, nw])."""
     k4, k3 = [], []
-    orig4, orig3 = ops.fused_frontier_update, ops.fused_frontier_update_batch
+    orig4, orig3 = ops.fused_frontier_update, ops.fused_frontier_update_rows
 
     def spy4(cand, vis, out=None):
         k4.append((cand.clone(), vis.clone()))
@@ -848,7 +889,7 @@ def capture_p3(g, keys: np.ndarray, roots: np.ndarray) -> tuple[list, list]:
         return orig3(cand, vis)
 
     ops.fused_frontier_update = spy4
-    ops.fused_frontier_update_batch = spy3
+    ops.fused_frontier_update_rows = spy3
     try:
         runner = BFSRunner(g)
         for r in keys:
@@ -856,40 +897,18 @@ def capture_p3(g, keys: np.ndarray, roots: np.ndarray) -> tuple[list, list]:
         MultiSourceBFSRunner(g, packed=False).run(roots)
     finally:
         ops.fused_frontier_update = orig4
-        ops.fused_frontier_update_batch = orig3
+        ops.fused_frontier_update_rows = orig3
     return k4, k3
 
 
-def k4_alone(c: torch.Tensor, v: torch.Tensor, reps: int) -> dict:
-    """K4 alone: outputs made once, the C launch function's launch replayed
-    from a CUDA graph (device time, :func:`graph_ms`), in turns forward
-    then back: as the wrapper launches it (the last CTA sums the
-    partials) and as the first design ran (K3's launch at one plane: an
-    atomic a block into a count zeroed once).  Each gives the same
-    outputs.  Returns the means and the larger spread of a variant's two
-    turns over its mean."""
-    lib = kbu._lib()
-    new, vout = torch.empty_like(c), torch.empty_like(v)
-    cnt = torch.zeros((1, 1), dtype=torch.int32, device=c.device)
-    scratch = kbu.scratch_for(c.device).data_ptr()
-    ptrs = (c.data_ptr(), v.data_ptr(), new.data_ptr(), vout.data_ptr(),
-            cnt.data_ptr())
-    w = int(c.numel())
-    variants = {
-        "kernel_only_ms": lambda st: lib.bitmap_update_launch(
-            *ptrs, scratch, w, st),
-        "atomic_ms": lambda st: lib.bitmap_update_batch_launch(
-            *ptrs, 1, w, st)}
-
+def alone_turns(variants: dict, dev, reps: int) -> dict:
+    """Each variant (a function of the stream handle that calls a C launch
+    function) timed by :func:`graph_ms`, in turns forward then back.
+    Returns the means and the larger spread of a variant's two turns over
+    its mean."""
     def run(name):
-        _build.raise_on_error(variants[name](_build.stream_ptr(c.device)),
-                              f"K4 {name}")
+        _build.raise_on_error(variants[name](_build.stream_ptr(dev)), name)
 
-    want = ref.bitmap_update_ref(c, v)
-    for name in variants:
-        cnt.zero_()
-        run(name)
-        assert_same((new, vout, cnt), want, f"K4 alone {name}")
     t = {name: [] for name in variants}
     for name in [*variants, *reversed(variants)]:
         t[name].append(graph_ms(lambda: run(name), reps))
@@ -899,64 +918,211 @@ def k4_alone(c: torch.Tensor, v: torch.Tensor, reps: int) -> dict:
     return out
 
 
-def phase_p3_real(g, keys: np.ndarray, roots: np.ndarray) -> dict:
+def k4_alone(c: torch.Tensor, v: torch.Tensor, reps: int) -> dict:
+    """K4 alone: outputs made once, the C launch function's launch (the
+    last CTA sums the partials) replayed from a CUDA graph (device time),
+    twice; its outputs checked first."""
+    lib = kbu._lib()
+    new, vout = torch.empty_like(c), torch.empty_like(v)
+    cnt = torch.full((1, 1), -1, dtype=torch.int32, device=c.device)
+    scratch = kbu.scratch_for(c.device).data_ptr()
+    ptrs = (c.data_ptr(), v.data_ptr(), new.data_ptr(), vout.data_ptr(),
+            cnt.data_ptr())
+    w = int(c.numel())
+    variants = {"kernel_only_ms": lambda st: lib.bitmap_update_launch(
+        *ptrs, scratch, w, st)}
+    _build.raise_on_error(variants["kernel_only_ms"](
+        _build.stream_ptr(c.device)), "K4")
+    assert_same((new, vout, cnt), ref.bitmap_update_ref(c, v), "K4 alone")
+    return alone_turns(variants, c.device, reps)
+
+
+# an L2 flush between timed launches: reads twice the H100's 50 MB L2
+FLUSH_WORDS = 1 << 25
+
+
+def k3_alone(c: torch.Tensor, v: torch.Tensor, reps: int) -> dict:
+    """Both forms of K3 alone on one bool-plane call's words: the rows
+    form on the engine's [n, nw] words, the planes-major form on their
+    transposes; outputs made once (counts set to -1 first, so the kernel
+    must write them), each C launch function replayed from a CUDA graph
+    in turns.  Also the rows form with the L2 flushed before each launch
+    (graph of flush + launch, less the graph of the flush alone)."""
+    lib, dev = kbu._lib(), c.device
+    n, nw = c.shape
+    ct, vt = c.T.contiguous(), v.T.contiguous()
+    scratch = kbu.scratch_for(dev, None, 1 + nw)
+    sp, sw = scratch.data_ptr(), scratch.numel()
+    outs = {}
+    for form, (a, b) in (("rows", (c, v)), ("planes", (ct, vt))):
+        outs[form] = (torch.empty_like(a), torch.empty_like(b),
+                      torch.full((nw, 1, 1), -1, dtype=torch.int32,
+                                 device=dev))
+    ro, po = ([t.data_ptr() for t in outs[f]] for f in ("rows", "planes"))
+    variants = {
+        "rows_alone_ms": lambda st: lib.bitmap_update_rows_launch(
+            c.data_ptr(), v.data_ptr(), *ro, sp, sw, n, nw, st),
+        "planes_alone_ms": lambda st: lib.bitmap_update_batch_launch(
+            ct.data_ptr(), vt.data_ptr(), *po, sp, sw, nw, n, st)}
+    for name, fn in variants.items():
+        _build.raise_on_error(fn(_build.stream_ptr(dev)), name)
+    assert_same(outs["rows"], ref.bitmap_update_rows_ref(c, v),
+                "K3 rows alone")
+    assert_same(outs["planes"], ref.bitmap_update_batch_ref(ct, vt),
+                "K3 planes-major alone")
+    out = alone_turns(variants, dev, reps)
+    # the flush reads (a max over FLUSH_WORDS words): it leaves no dirty
+    # line in L2 for the launch to write back
+    flush = torch.ones(FLUSH_WORDS, dtype=torch.int32, device=dev)
+    peak = torch.empty((), dtype=torch.int32, device=dev)
+    launch = variants["rows_alone_ms"]
+
+    def flushed():
+        torch.amax(flush, 0, out=peak)
+        _build.raise_on_error(launch(_build.stream_ptr(dev)), "K3 rows")
+
+    both = graph_ms(flushed, reps // 5)
+    alone = graph_ms(lambda: torch.amax(flush, 0, out=peak), reps // 5)
+    out["rows_cold_ms"] = both - alone
+    out["flush_ms"] = alone
+    del flush, peak
+    return out
+
+
+def phase_p3_real(g, keys: np.ndarray, roots: np.ndarray, card: str
+                  ) -> dict:
     """K4 and K3 against their plain versions on every level's real
     inputs, timed level by level (means over the levels): K4 over every
     level of (h)'s 64 single-source runs, as the runner calls it (into
     out= buffers), with fresh outputs, and alone (:func:`k4_alone`); K3
-    over one bool-plane wave, with the two [n_pad, nw] -> [nw, n_pad]
-    transposes around each call."""
+    over each of one bool-plane wave's calls, both forms bit-exact: the
+    new route (the rows form as the engine calls it, wrapper included),
+    the old route (the two [n_pad, nw] -> [nw, n_pad] transposes and the
+    planes-major wrapper, as the engine called it before the rows form),
+    the transposes alone, and each form alone (:func:`k3_alone`)."""
     k4, k3 = capture_p3(g, keys, roots)
-    out, trans_ms = {}, []
-    for name, kern, plain, calls in (
-            ("bitmap_update", kbu.bitmap_update, ref.bitmap_update_ref, k4),
-            ("bitmap_update_batch", kbu.bitmap_update_batch,
-             ref.bitmap_update_batch_ref, k3)):
-        rows = []
-        for lvl, (c, v) in enumerate(calls):
-            e = check_p3(kern, plain, c, v, f"{name} level {lvl}")
-            nbytes = kbu.p3_bytes(c)
-            row = dict(max_abs_err=e, bytes=nbytes, bound_ms=bound(nbytes)[0],
-                       plain_ms=time_ms(lambda: plain(c, v), 3))
-            if c.dim() == 1:
-                o = (torch.empty_like(c), torch.empty_like(v),
-                     torch.empty((1, 1), dtype=torch.int32, device=c.device))
-                e = max(e, assert_same(kern(c, v, out=o), plain(c, v),
-                                       f"{name} out= level {lvl}"))
-                row.update(max_abs_err=e,
-                           ms=time_ms(lambda: kern(c, v, out=o), 20),
-                           fresh_ms=time_ms(lambda: kern(c, v), 20),
-                           **k4_alone(c, v, 50))
-            else:
-                row["ms"] = time_ms(lambda: kern(c, v), 20)
-                # the engine's planes come [n_pad, nw]: two copies per call
-                cp, vp = c.T.contiguous(), v.T.contiguous()
-                trans_ms.append(time_ms(
-                    lambda: (cp.T.contiguous(), vp.T.contiguous()), 20))
-            rows.append(row)
-        out[name] = {k: float(np.mean([r[k] for r in rows]))
-                     for k in rows[0] if k != "max_abs_err"}
-        out[name]["max_abs_err"] = max(r["max_abs_err"] for r in rows)
-        r = out[name]
-        where = ("(h)'s 64 single-source runs" if c.dim() == 1
-                 else "one bool-plane wave")
-        log(f"(c) {name}: mean over the {len(rows)} P3 calls of {where} "
-            f"(shape {tuple(c.shape)}), bit-exact on each: kernel_ms="
-            f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms="
-            f"{r['bound_ms']:.5f} (bytes={r['bytes']:.0f}) library_ms=null")
-        if name == "bitmap_update":
-            log(f"(c) bitmap_update: wrapper into out= buffers (as the runner "
-                f"calls it) {r['ms']:.5f} ms, with fresh outputs "
-                f"{r['fresh_ms']:.5f}; alone (C launch function, graph "
-                f"replay): as launched {r['kernel_only_ms']:.5f}, the first "
-                f"design (an atomic a block, count zeroed once) "
-                f"{r['atomic_ms']:.5f} "
-                f"(turn spread mean {r['turn_spread']:.4f}; bound "
-                f"{r['bound_ms']:.5f})")
-    out["transpose_ms"] = float(np.mean(trans_ms))
-    log(f"(c) K3's two input transposes ([n_pad, nw] -> [nw, n_pad], cand "
-        f"and seen): {out['transpose_ms']:.4f} ms per call (mean over "
-        f"{len(trans_ms)} calls)")
+    out = {}
+    rows = []
+    for lvl, (c, v) in enumerate(k4):
+        e = check_p3(kbu.bitmap_update, ref.bitmap_update_ref, c, v,
+                     f"bitmap_update level {lvl}")
+        o = (torch.empty_like(c), torch.empty_like(v),
+             torch.empty((1, 1), dtype=torch.int32, device=c.device))
+        e = max(e, assert_same(kbu.bitmap_update(c, v, out=o),
+                               ref.bitmap_update_ref(c, v),
+                               f"bitmap_update out= level {lvl}"))
+        nbytes = kbu.p3_bytes(c)
+        rows.append(dict(
+            max_abs_err=e, bytes=nbytes, bound_ms=bound(nbytes)[0],
+            plain_ms=time_ms(lambda: ref.bitmap_update_ref(c, v), 3),
+            ms=time_ms(lambda: kbu.bitmap_update(c, v, out=o), 20),
+            fresh_ms=time_ms(lambda: kbu.bitmap_update(c, v), 20),
+            **k4_alone(c, v, 50)))
+    out["bitmap_update"] = r = mean_rows(rows)
+    log(f"(c) bitmap_update: mean over the {len(rows)} P3 calls of (h)'s "
+        f"64 single-source runs (shape {tuple(c.shape)}), bit-exact on "
+        f"each: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+        f"bound_ms={r['bound_ms']:.5f} (bytes={r['bytes']:.0f}) "
+        "library_ms=null")
+    log(f"(c) bitmap_update: wrapper into out= buffers (as the runner "
+        f"calls it) {r['ms']:.5f} ms, with fresh outputs "
+        f"{r['fresh_ms']:.5f}; alone (C launch function, graph replay) "
+        f"{r['kernel_only_ms']:.5f} (turn spread {r['turn_spread']:.4f}; "
+        f"bound {r['bound_ms']:.5f})")
+
+    rows = []
+    for lvl, (c, v) in enumerate(k3):
+        ct, vt = c.T.contiguous(), v.T.contiguous()
+        want = ref.bitmap_update_rows_ref(c, v)
+        e = max(assert_same(kbu.bitmap_update_rows(c, v), want,
+                            f"K3 rows call {lvl}"),
+                assert_same(kbu.bitmap_update_batch(ct, vt),
+                            ref.bitmap_update_batch_ref(ct, vt),
+                            f"K3 planes-major call {lvl}"))
+        old = ops.fused_frontier_update_batch(ct, vt)
+        e = max(e, assert_same((old[0].T, old[1].T, old[2]),
+                               (want[0], want[1], want[2].reshape(-1)),
+                               f"K3 old route call {lvl}"))
+        nbytes = kbu.p3_bytes(c, rows=True)
+        row = dict(
+            max_abs_err=e, bytes=nbytes, bound_ms=bound(nbytes)[0],
+            plain_ms=time_ms(lambda: ref.bitmap_update_rows_ref(c, v), 3),
+            planes_plain_ms=time_ms(
+                lambda: ref.bitmap_update_batch_ref(ct, vt), 3),
+            ms=time_ms(lambda: ops.fused_frontier_update_rows(c, v), 20),
+            old_ms=time_ms(lambda: ops.fused_frontier_update_batch(
+                c.T.contiguous(), v.T.contiguous()), 20),
+            transpose_ms=time_ms(
+                lambda: (c.T.contiguous(), v.T.contiguous()), 20),
+            planes_ms=time_ms(lambda: kbu.bitmap_update_batch(ct, vt), 20),
+            **k3_alone(c, v, 50))
+        rows.append(row)
+        b = row["bound_ms"]
+        log(f"(c) K3 bool-plane call {lvl}, [{c.shape[0]}, {c.shape[1]}] "
+            f"({card}), both forms bit-exact: old route (two transposes + "
+            f"planes-major wrapper) {row['old_ms']:.5f} ms | new route (rows "
+            f"wrapper, as the engine calls it) {row['ms']:.5f} | rows alone "
+            f"{row['rows_alone_ms']:.5f} (L2 flushed first "
+            f"{row['rows_cold_ms']:.5f}) | planes-major alone "
+            f"{row['planes_alone_ms']:.5f} (wrapper {row['planes_ms']:.5f}) "
+            f"| transposes {row['transpose_ms']:.5f} | bound {b:.5f} ms "
+            f"(bytes {nbytes}); share of bound: old route "
+            f"{share(b, row['old_ms']):.3f}, new route {share(b, row['ms']):.3f}, rows "
+            f"alone {share(b, row['rows_alone_ms']):.3f} (flushed "
+            f"{share(b, row['rows_cold_ms']):.3f}), planes-major alone "
+            f"{share(b, row['planes_alone_ms']):.3f} | plain {row['plain_ms']:.4f} "
+            f"(planes-major plain {row['planes_plain_ms']:.4f}) "
+            f"library_ms=null")
+    out["bitmap_update_batch"] = r = mean_rows(rows)
+    b = r["bound_ms"]
+    log(f"(c) bitmap_update_batch: mean over the {len(rows)} P3 calls of "
+        f"one bool-plane wave (shape {tuple(c.shape)}; {card}), both forms "
+        f"bit-exact on each: kernel_ms={r['ms']:.5f} (new route, the rows "
+        f"wrapper) plain_ms={r['plain_ms']:.4f} bound_ms={b:.5f} (bytes="
+        f"{r['bytes']:.0f}) library_ms=null; old route {r['old_ms']:.5f} "
+        f"(transposes {r['transpose_ms']:.5f}); alone: rows "
+        f"{r['rows_alone_ms']:.5f} (L2 flushed {r['rows_cold_ms']:.5f}, "
+        f"flush {r['flush_ms']:.4f}), planes-major {r['planes_alone_ms']:.5f}"
+        f" (turn spread {r['turn_spread']:.4f}); share of bound: old route "
+        f"{share(b, r['old_ms']):.3f}, new route {share(b, r['ms']):.3f}, rows alone "
+        f"{share(b, r['rows_alone_ms']):.3f} (flushed {share(b, r['rows_cold_ms']):.3f})"
+        f", planes-major alone {share(b, r['planes_alone_ms']):.3f}")
+    # at B = 256's width the words outgrow the L2: the DRAM rate
+    nw = -(-WIDE_BATCH // 32)
+    c = p3_words((g.n_pad, nw), 11, g.device)
+    v = p3_words((g.n_pad, nw), 12, g.device)
+    assert_same(kbu.bitmap_update_rows(c, v), ref.bitmap_update_rows_ref(c, v),
+                f"K3 rows [{g.n_pad}, {nw}]")
+    nbytes = kbu.p3_bytes(c, rows=True)
+    b = bound(nbytes)[0]
+    w = dict(ms=time_ms(lambda: ops.fused_frontier_update_rows(c, v), 20),
+             old_ms=time_ms(lambda: ops.fused_frontier_update_batch(
+                 c.T.contiguous(), v.T.contiguous()), 20),
+             **k3_alone(c, v, 20))
+    out["bitmap_update_batch"]["wide"] = w
+    log(f"(c) K3 at B = {WIDE_BATCH}'s width, [{g.n_pad}, {nw}] random "
+        f"words ({card}), both forms bit-exact: bound {b:.5f} ms (bytes "
+        f"{nbytes}, {nbytes / 1e6:.0f} MB against the 50 MB L2); rows alone "
+        f"{w['rows_alone_ms']:.5f} "
+        f"({share(b, w['rows_alone_ms']):.3f}; L2 flushed first "
+        f"{w['rows_cold_ms']:.5f}), planes-major alone "
+        f"{w['planes_alone_ms']:.5f} ({share(b, w['planes_alone_ms']):.3f}"
+        f"), new route {w['ms']:.5f} ({share(b, w['ms']):.3f}), old route "
+        f"{w['old_ms']:.5f} ({share(b, w['old_ms']):.3f})")
+    return out
+
+
+def share(bound_ms: float, ms: float) -> float:
+    """A bound's share of a time; NaN where a difference of two timings
+    came out at or below 0."""
+    return bound_ms / ms if ms > 0 else float("nan")
+
+
+def mean_rows(rows: list[dict]) -> dict:
+    """The mean of every key over ``rows``, max_abs_err their largest."""
+    out = {k: float(np.mean([r[k] for r in rows]))
+           for k in rows[0] if k != "max_abs_err"}
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     return out
 
 
@@ -3054,7 +3220,7 @@ def main(argv=None) -> int:
                                         wide[name]["max_abs_err"])
     real["msbfs_propagate_planes_tiled"] = wide["msbfs_propagate_planes_tiled"]
     p3_err = phase_p3_small(g.n_pad, args.batch, dev)
-    real.update(phase_p3_real(g, keys, wave_roots))
+    real.update(phase_p3_real(g, keys, wave_roots, card))
 
     # (d) serving path, auto plan; (e) whole-array kernel
     d = phase_serve(args.graph, args.batch, args.seed, dev, None, "d")

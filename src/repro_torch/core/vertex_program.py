@@ -781,14 +781,12 @@ class VertexProgramRunner:
 # ---------------------------------------------------------------------------
 
 def _p3_update_ms(cand_w, seen_w, use_kernels: bool):
-    """Batched P3: kernel K3 (planes-major, so the [n_pad, nw] words are
-    transposed to [nw, n_pad] around the call, as in the reference) or
-    the plain body."""
+    """Batched P3: kernel K3 on the [n_pad, nw] words as they are (its
+    rows form: one launch, no transposes) or the plain body."""
     if use_kernels:
         from repro_torch.kernels import ops as kops
-        new_t, seen_t, _ = kops.fused_frontier_update_batch(
-            cand_w.T.contiguous(), seen_w.T.contiguous())
-        return new_t.T, seen_t.T
+        new, seen, _ = kops.fused_frontier_update_rows(cand_w, seen_w)
+        return new, seen
     new = cand_w & ~seen_w
     return new, seen_w | new
 

@@ -1,8 +1,9 @@
 """Glue between the engines and the kernels (port of
 ``repro.kernels.ops``).
 
-``fused_frontier_update`` and ``fused_frontier_update_batch`` are the P3
-entries of the single-source runner and the bool-plane baseline.
+``fused_frontier_update`` and ``fused_frontier_update_rows`` are the P3
+entries of the single-source runner and the bool-plane baseline;
+``fused_frontier_update_batch`` is the reference's planes-major entry.
 ``msbfs_propagate`` picks the kernel with ``propagate_plan``: the
 whole-array kernel takes the engine's edge list as it stands (it drops
 invalid and out-of-range slots itself), the tiled path masks and buckets
@@ -20,7 +21,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.bitmap_update import (bitmap_update,
-                                               bitmap_update_batch)
+                                               bitmap_update_batch,
+                                               bitmap_update_rows)
 from repro_torch.kernels.csr_gather import gather_pages
 from repro_torch.kernels.msbfs_propagate import (
     MAX_SMEM_PER_BLOCK, msbfs_propagate_planes, msbfs_propagate_planes_tiled)
@@ -45,6 +47,15 @@ def fused_frontier_update_batch(cand_words: torch.Tensor,
     """P3 update on a stack of planes: int32[g, w] -> (new, visited,
     counts[g]), one popcount per plane (kernel K3)."""
     nf, vo, cnt = bitmap_update_batch(cand_words, visited_words)
+    return nf, vo, cnt.reshape(-1)
+
+
+def fused_frontier_update_rows(cand_words: torch.Tensor,
+                               visited_words: torch.Tensor):
+    """P3 update on the engine's planes as they are: int32[n, nw], plane j
+    in column j -> (new, visited, counts[nw]) (kernel K3's rows form; no
+    transposes)."""
+    nf, vo, cnt = bitmap_update_rows(cand_words, visited_words)
     return nf, vo, cnt.reshape(-1)
 
 

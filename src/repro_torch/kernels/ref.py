@@ -39,6 +39,15 @@ def bitmap_update_batch_ref(cand: torch.Tensor, visited: torch.Tensor):
     return nf, visited | nf, cnt.reshape(-1, 1, 1)
 
 
+def bitmap_update_rows_ref(cand: torch.Tensor, visited: torch.Tensor):
+    """Plain version of ``bitmap_update_rows`` (kernel K3 on the engine's
+    int32[n, nw] rows, plane j in column j): the same P3, one popcount
+    per column as int32[nw, 1, 1]."""
+    nf = cand & ~visited
+    cnt = _popcount_words(nf).sum(0, dtype=torch.int32)
+    return nf, visited | nf, cnt.reshape(-1, 1, 1)
+
+
 def _check_op(op: str) -> None:
     if op not in OPS:
         raise ValueError(f"op must be 'or' or 'max', got {op!r}")

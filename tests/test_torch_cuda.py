@@ -366,12 +366,86 @@ def test_bitmap_update_batch_kernel(dev, g, w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("g,w", [(1000, 0), (1000, 3), (3000, 64),
+                                 (2, 1 << 20)])
+def test_bitmap_update_batch_kernel_counts_itself(dev, g, w):
+    """The planes-major form writes every plane's count itself, over
+    counts it allocates unzeroed: more planes than resident CTAs, no
+    words at all, and rmat20's two planes."""
+    c, v = _words((g, w), g + w), _words((g, w), g + w + 1)
+    args = (planes_from_numpy(c, dev), planes_from_numpy(v, dev))
+    for _ in range(2):
+        kbu.reset_launches()
+        _same(kbu.bitmap_update_batch(*args),
+              ref.bitmap_update_batch_ref(*args))
+        assert kbu.LAUNCHES["bitmap_update_batch"] == 1
+    assert not bool(kbu.scratch_for(dev).any())     # left zero
+    torch.cuda.synchronize()
+
+
+def _rows_words(n, nw, seed):
+    """[n, nw] words with an all-ones column of new, an all-zero one where
+    nw > 1, and bit 31 set in about half the others."""
+    c, v = _words((n, nw), seed), _words((n, nw), seed + 1)
+    c[:, 0], v[:, 0] = 0xFFFFFFFF, 0
+    if nw > 1:
+        v[:, -1] = 0xFFFFFFFF
+    return c, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("n", [1, 31, 127, 129, 8191])
+def test_bitmap_update_rows_kernel(dev, n, nw):
+    """K3 on the engine's rows against its plain version, one launch a
+    call: 128-bit vectors (folded in the warp where nw / gcd(nw, 4)
+    divides 32, by shared atomics otherwise) and, on a view 4 bytes into
+    its storage, the scalar kernel."""
+    c, v = _rows_words(n, nw, 100 * n + nw)
+    args = (planes_from_numpy(c, dev), planes_from_numpy(v, dev))
+    kbu.reset_launches()
+    got = kbu.bitmap_update_rows(*args)
+    assert kbu.LAUNCHES["bitmap_update_batch"] == 1
+    _same(got, ref.bitmap_update_rows_ref(*args))
+    assert int(got[2][0]) == 32 * n
+    flat = [planes_from_numpy(np.concatenate([[7], x.reshape(-1)]), dev)
+            for x in (c, v)]
+    views = [f[1:].view(n, nw) for f in flat]
+    assert all(t.is_contiguous() and t.data_ptr() % 16 for t in views)
+    _same(kbu.bitmap_update_rows(*views), ref.bitmap_update_rows_ref(*args))
+    assert kbu.LAUNCHES["bitmap_update_batch"] == 2
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw", [1, 2, 8])
+def test_bitmap_update_rows_kernel_engine_size(dev, nw):
+    """rmat20's n_pad rows at B = 32, 64 and 256: three calls in a row on
+    changing inputs (the last CTA re-zeroes the arrival counter), fresh
+    outputs that overlap no input, the step's counts equal the plain
+    version's."""
+    n = 1 << 20
+    for k in range(3):
+        c, v = _rows_words(n, nw, nw + k)
+        args = (planes_from_numpy(c, dev), planes_from_numpy(v, dev))
+        got = kbu.bitmap_update_rows(*args)
+        _same(got, ref.bitmap_update_rows_ref(*args))
+        assert len({t.data_ptr() for t in (*args, *got)}) == 5
+    assert not bool(kbu.scratch_for(dev).any())     # left zero
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_p3_kernels_refuse_what_they_cannot_take(dev):
     c = planes_from_numpy(_words((4, 8), 1), dev)
     with pytest.raises(ValueError):
         kbu.bitmap_update(c, c)                   # K4 takes flat words
     with pytest.raises(ValueError):
         kbu.bitmap_update_batch(c.T, c.T)          # not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        kbu.bitmap_update_rows(c.T, c.T)           # never copied
+    with pytest.raises(ValueError, match="shape mismatch"):
+        kbu.bitmap_update_rows(c, c[:-1])
     with pytest.raises(TypeError):
         kbu.bitmap_update(c.reshape(-1).to(torch.int64),
                           c.reshape(-1).to(torch.int64))

@@ -512,3 +512,104 @@ def test_p3_wrappers_check_their_inputs():
     assert kbu.LAUNCHES == {"bitmap_update": 0, "bitmap_update_batch": 0}
     with pytest.raises(ValueError, match="unsupported device"):
         kbu.bitmap_update(c.to("meta"), v.to("meta"))
+
+
+# K3 on the engine's rows: int32[n, nw], plane j in column j, held against
+# the reference's planes-major K3 on the transposed words (Pallas in
+# interpret mode), outputs transposed back
+
+def _rows_case(n, nw, seed):
+    """[n, nw] words with an all-ones column of new (cand all ones over
+    nothing seen), an all-zero one (everything seen) where nw > 1, and
+    bit 31 set in about half the other words."""
+    c, v = _words_np((n, nw), seed), _words_np((n, nw), seed + 1)
+    c[:, 0], v[:, 0] = 0xFFFFFFFF, 0
+    if nw > 1:
+        v[:, -1] = 0xFFFFFFFF
+    return c, v
+
+
+def _assert_rows_outputs(got, want_t, nw, what=""):
+    """``got`` from the rows form; ``want_t`` the planes-major outputs of
+    the transposed words ([nw, ...]), transposed back here."""
+    nf, vo, cnt = want_t
+    want = (np.asarray(nf).reshape(nw, -1).T, np.asarray(vo).reshape(nw, -1).T,
+            np.asarray(cnt).reshape(-1))
+    _assert_outputs(got, want, what)
+    assert tuple(got[2].shape) == (nw, 1, 1)
+
+
+@pytest.mark.parametrize("nw", [1, 2, 3, 8])
+def test_bitmap_update_rows_plain_vs_pallas(nw):
+    """The Pallas kernel itself: n = 2048 rows make [nw, 16, 128] tiles."""
+    n = 2048
+    c, v = _rows_case(n, nw, nw)
+    want = j_bitmap_update_batch(jnp.asarray(c.T.reshape(nw, -1, 128)),
+                                 jnp.asarray(v.T.reshape(nw, -1, 128)),
+                                 block_rows=16)
+    got = kbu.bitmap_update_rows(_p(c), _p(v))
+    _assert_rows_outputs(got, want, nw, f"nw={nw}")
+    _assert_rows_outputs(ref.bitmap_update_rows_ref(_p(c), _p(v)), want, nw,
+                         f"ref nw={nw}")
+
+
+@pytest.mark.parametrize("nw", [1, 2, 3, 8])
+@pytest.mark.parametrize("n", [1, 31, 129, 1000])
+def test_fused_frontier_update_rows_odd_sizes(n, nw):
+    """Odd row counts: the reference pads the transposed planes to its
+    tiles (``ops.fused_frontier_update_batch``); the rows form takes them
+    as they are."""
+    c, v = _rows_case(n, nw, 10 * n + nw)
+    got = ops.fused_frontier_update_rows(_p(c), _p(v))
+    nf, vo, cnt = jops.fused_frontier_update_batch(jnp.asarray(c.T),
+                                                   jnp.asarray(v.T))
+    _assert_outputs(got, (np.asarray(nf).T, np.asarray(vo).T, cnt),
+                    f"n={n} nw={nw}")
+    assert tuple(got[2].shape) == (nw,)
+    assert int(got[2][0]) == 32 * n                # the all-ones column
+    if nw > 1:
+        assert int(got[2][-1]) == 0                # the all-seen column
+
+
+def test_bitmap_update_rows_wrapper_contract():
+    """The rows form takes contiguous int32[n, nw] pairs of one shape and
+    nothing else, on the CPU as on the card (it never copies a strided
+    input); it returns fresh outputs, leaves its inputs as they were and
+    counts no launch on the CPU."""
+    c, v = _rows_case(40, 3, 7)
+    ct, vt = _p(c), _p(v)
+    c0, v0 = ct.clone(), vt.clone()
+    kbu.reset_launches()
+    nf, vo, cnt = kbu.bitmap_update_rows(ct, vt)
+    assert kbu.LAUNCHES == {"bitmap_update": 0, "bitmap_update_batch": 0}
+    assert torch.equal(ct, c0) and torch.equal(vt, v0)
+    spans = [(t.data_ptr(), t.data_ptr() + 4 * t.numel())
+             for t in (ct, vt, nf, vo, cnt)]
+    for i in range(2, 5):                          # no output overlaps
+        for j in range(i):
+            assert spans[i][1] <= spans[j][0] or spans[j][1] <= spans[i][0]
+    with pytest.raises(ValueError, match="contiguous"):
+        kbu.bitmap_update_rows(_p(c.T.copy()).T, vt)
+    with pytest.raises(ValueError, match="contiguous"):
+        kbu.bitmap_update_rows(ct, _p(v.T.copy()).T)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        kbu.bitmap_update_rows(ct, vt[:-1])
+    with pytest.raises(ValueError, match="2-D"):
+        kbu.bitmap_update_rows(ct.reshape(-1), vt.reshape(-1))
+    with pytest.raises(TypeError):
+        kbu.bitmap_update_rows(ct.to(torch.int64), vt.to(torch.int64))
+    with pytest.raises(ValueError, match="unsupported device"):
+        kbu.bitmap_update_rows(ct.to("meta"), vt.to("meta"))
+    assert kbu.LAUNCHES == {"bitmap_update": 0, "bitmap_update_batch": 0}
+
+
+@pytest.mark.parametrize("nw", [1, 2, 3, 8])
+def test_p3_bytes_of_each_form(nw):
+    """One int32 count a plane in every form: nw for the rows form, whose
+    leading dimension is the row count, not the plane count."""
+    n = 70
+    words = 4 * n * nw * 4
+    rows = _p(_words_np((n, nw), 1))
+    assert kbu.p3_bytes(rows, rows=True) == words + 4 * nw
+    assert kbu.p3_bytes(rows.T.contiguous()) == words + 4 * nw
+    assert kbu.p3_bytes(rows.reshape(-1)) == 4 * n * nw * 4 + 4

@@ -270,23 +270,26 @@ def test_boolplane_matches_reference(batch, policy):
 
 
 def test_boolplane_kernel_route_on_cpu():
-    """use_kernels=True reaches the K3 wrapper (its plain body on the
-    CPU, so no launch is counted); the transposes keep the answer."""
+    """use_kernels=True reaches K3's rows form on the engine's [n_pad, nw]
+    words as they are, contiguous and untransposed (its plain body on the
+    CPU, so no launch is counted), and gives the levels of
+    use_kernels=False and of the reference's Pallas bool-plane run."""
     src, dst = _awkward_edges(N, 400, seed=4)
-    *_, tg = _graphs(src, dst)
+    jc, jg, tc, tg = _graphs(src, dst)
     roots = _roots(40, seed=4)
     calls = []
-    orig = kbu.bitmap_update_batch
+    orig = kbu.bitmap_update_rows
 
     def spy(cand, visited):
-        calls.append(tuple(cand.shape))
+        calls.append((tuple(cand.shape), cand.is_contiguous(),
+                      visited.is_contiguous()))
         return orig(cand, visited)
 
     kbu.reset_launches()
     mp = pytest.MonkeyPatch()
     try:
         from repro_torch.kernels import ops
-        mp.setattr(ops, "bitmap_update_batch", spy)
+        mp.setattr(ops, "bitmap_update_rows", spy)
         got = MultiSourceBFSRunner(tg, use_kernels=True,
                                    packed=False).run(roots)
     finally:
@@ -294,7 +297,9 @@ def test_boolplane_kernel_route_on_cpu():
     want = MultiSourceBFSRunner(tg, use_kernels=False,
                                 packed=False).run(roots)
     np.testing.assert_array_equal(got.levels, want.levels)
-    assert calls and all(c == (2, tg.n_pad) for c in calls)
+    jres = JMS(jg, use_pallas=True, packed=False).run(roots)
+    np.testing.assert_array_equal(got.levels, np.asarray(jres.levels))
+    assert calls and all(c == ((tg.n_pad, 2), True, True) for c in calls)
     assert kbu.LAUNCHES["bitmap_update_batch"] == 0
 
 

@@ -170,6 +170,13 @@ def _k3():
             ref.bitmap_update_batch_ref(c, v))
 
 
+def _k3_rows():
+    # the engine's [n, nw] rows: nw counts, not n
+    c, v = _words((70, 3), 11), _words((70, 3), 12)
+    return (kbu.bitmap_update_rows, (c, v), 4 * 210 * 4 + 3 * 4, 0.0,
+            ref.bitmap_update_rows_ref(c, v))
+
+
 def _k4():
     c, v = _words((129,), 13), _words((129,), 14)
     return (kbu.bitmap_update, (c, v), 4 * 129 * 4 + 4, 0.0,
@@ -209,7 +216,8 @@ def _k7():
 
 @pytest.mark.parametrize("case,name", [
     (_k1, "msbfs_propagate_planes"), (_k2, "msbfs_propagate_planes_tiled"),
-    (_k3, "bitmap_update_batch"), (_k4, "bitmap_update"),
+    (_k3, "bitmap_update_batch"), (_k3_rows, "bitmap_update_batch"),
+    (_k4, "bitmap_update"),
     (_k5, "gather_pages"), (_k6, "pull_spmv_blocks"),
     (_k7, "flash_attention")])
 def test_kernel_call_counts_once_at_its_own_bytes(case, name):
