@@ -161,7 +161,16 @@ them.  Phases, each failing the run on any error:
       pull step of one rank of a fake 256- or 512-rank group, their shard
       fields the reference's arithmetic, each step's peak bytes logged
       against the card's memory; (s3) ``perf_model.h100_model_teps(1,
-      len_nl)`` at --graph's mean degree beside (d)'s TEPS;
+      len_nl)`` at --graph's mean degree beside (d)'s TEPS; and, after
+      (u), (s2)'s LM cells (``LM_CELLS``: llama3-8b train_4k,
+      decode_32k and prefill_32k, qwen3-moe-30b-a3b train_4k with
+      ``ep`` on DTensors, mamba2-370m long_500k on 16x16, llava-next-34b
+      train_4k on 2x16x16) at full config, each in its own process on
+      the card, three at a time (rank 0's blocks zero-filled, one
+      counted and one timed step), while its twin runs on ``meta``
+      blocks on the CPU: the
+      record complete, the peak under the card's memory, the argument
+      bytes equal to the twin's, the counted FLOPs positive;
   (f) one JSON line of per-kernel results: K1 with its launches in (e)
       and times at --batch, K2 with its launches in (o)'s tiled call and
       (r1)'s wave and times at 256 roots, K3 in (i), K4 in (h), K5 in
@@ -1973,7 +1982,8 @@ def start_dryrun(out_dir: str) -> subprocess.Popen:
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
     return subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-         "--jobs", str(DRYRUN_JOBS), "--out", out_dir], env=env,
+         "--kind", "bfs", "--jobs", str(DRYRUN_JOBS), "--out", out_dir],
+        env=env,
         stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True, start_new_session=True)
 
@@ -1996,6 +2006,8 @@ def check_dryrun(proc: subprocess.Popen, out_dir: str) -> list:
     card_bytes = torch.cuda.get_device_properties(0).total_memory
     rows = []
     for path, args in dryrun.all_cells(out_dir):
+        if "--bfs" not in args:
+            continue                    # the LM cells: lm_dryrun_cells
         rec = json.loads(Path(path).read_text())
         spec = DATASETS[args[1]]
         n = 1 << spec.scale
@@ -2142,6 +2154,124 @@ def phase_analysis(ds, g, deg: np.ndarray, d: dict,
         model=dict(len_nl=len_nl, h100_model_teps=model,
                    measured_teps=out["aggregate_teps"]),
         phase_seconds=phase_s)
+
+
+# -- (s2) the dry-run's LM cells ---------------------------------------------
+
+# the LM cells run on the card at full config, in this order (a cell is
+# dropped from the end of the list, never a BFS cell, should the whole
+# no longer fit the script's time)
+LM_CELLS = (("llama3-8b", "train_4k", False),
+            ("llama3-8b", "decode_32k", False),
+            ("qwen3-moe-30b-a3b", "train_4k", False),   # ep under DTensor
+            ("mamba2-370m", "long_500k", False),
+            ("llama3-8b", "prefill_32k", False),
+            ("llava-next-34b", "train_4k", True))       # the largest
+LM_CELL_TIMEOUT = 600            # seconds one cell's process may take
+# cells at a time on the card, and meta twins on the CPU: a cell's
+# process is bound by the host's dispatch of DTensor ops, not by the
+# card, so three of each share the host's 8 cores
+LM_CARD_JOBS = 3
+LM_META_JOBS = 3
+LM_RECORD_KEYS = {"arch", "shape", "mesh", "kind", "overrides",
+                  "n_devices", "device", "setup_s", "step_s", "memory",
+                  "per_device", "roofline"}
+
+
+def run_lm_cell(arch: str, shape: str, multi_pod: bool, out_dir: str,
+                device: str | None) -> tuple[dict, float]:
+    """One LM cell of the dry-run in its own process, on the card or,
+    with ``device="cpu"``, on ``meta`` blocks: (its record, the process's
+    wall seconds)."""
+    tag = "meta" if device else "card"
+    path = os.path.join(out_dir, f"{arch}__{shape}__{multi_pod}__{tag}.json")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+           "--shape", shape, "--json-out", path]
+    cmd += ["--multi-pod"] if multi_pod else []
+    cmd += ["--device", device] if device else []
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=LM_CELL_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"(s2) {arch} {shape} ({tag}) took over "
+                             f"{LM_CELL_TIMEOUT} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"(s2) {arch} {shape} ({tag}) failed:\n"
+                             + "\n".join(out.strip().splitlines()[-15:]))
+    return json.loads(Path(path).read_text()), time.perf_counter() - t0
+
+
+def phase_lm_cells(card: str) -> list:
+    """(s2) the LM cells of ``LM_CELLS`` on the card at full config, one
+    process each, ``LM_CARD_JOBS`` at a time (a cell's ``step_s`` is
+    timed beside the others' host work), while the same cells run on
+    ``meta`` blocks on the CPU: each record complete, its peak bytes
+    (its own process's) under the card's memory, its argument bytes
+    equal to the meta twin's, its counted FLOPs positive."""
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    t_phase = time.perf_counter()
+    rows = []
+    with tempfile.TemporaryDirectory() as out_dir, \
+            ThreadPoolExecutor(LM_CARD_JOBS) as card_pool, \
+            ThreadPoolExecutor(LM_META_JOBS) as meta_pool:
+        cards = [card_pool.submit(run_lm_cell, *c, out_dir, None)
+                 for c in LM_CELLS]
+        metas = [meta_pool.submit(run_lm_cell, *c, out_dir, "cpu")
+                 for c in LM_CELLS]
+        for (arch, shape, _), on_card, meta in zip(LM_CELLS, cards, metas):
+            rec, wall = on_card.result()
+            twin, meta_wall = meta.result()
+            name = f"{arch} {shape} {rec['mesh']}"
+            keys = LM_RECORD_KEYS | ({"microbatches"}
+                                     if rec["kind"] == "train" else set())
+            mem, per = rec["memory"], rec["per_device"]
+            if set(rec) != keys:
+                raise AssertionError(f"(s2) {name}: keys {sorted(rec)}")
+            if rec["device"] != torch.cuda.get_device_name(0) or \
+                    twin["device"] != "meta":
+                raise AssertionError(f"(s2) {name}: ran on {rec['device']}"
+                                     f", its twin on {twin['device']}")
+            if not (mem["peak_bytes"] and mem["peak_bytes"] < card_bytes):
+                raise AssertionError(f"(s2) {name}: peak {mem['peak_bytes']}"
+                                     f" of the card's {card_bytes}")
+            if mem["argument_size_in_bytes"] != \
+                    twin["memory"]["argument_size_in_bytes"]:
+                raise AssertionError(
+                    f"(s2) {name}: argument bytes {mem} on the card, "
+                    f"{twin['memory']} on meta")
+            if not per["flops"] > 0:
+                raise AssertionError(f"(s2) {name}: counted {per}")
+            roof = rec["roofline"]
+            rows.append(dict(
+                cell=name, wall_s=wall, meta_wall_s=meta_wall,
+                setup_s=rec["setup_s"], step_s=rec["step_s"],
+                peak_bytes=mem["peak_bytes"],
+                argument_bytes=mem["argument_size_in_bytes"],
+                flops=per["flops"], bytes=per["bytes"],
+                collective_by_op=per["collective_by_op"],
+                meta_flops=twin["per_device"]["flops"],
+                dominant=roof["dominant"], bound_s=roof["bound_s"],
+                roofline_fraction=roof["roofline_fraction"]))
+            peak = mem["peak_bytes"]
+            log(f"(s2) {card}: {name} step_s={rec['step_s']:.3f} peak="
+                f"{peak / 1e9:.2f} GB ({peak / card_bytes:.4f} of the "
+                f"card) argument bytes="
+                f"{mem['argument_size_in_bytes']} (= meta's) flops="
+                f"{per['flops']:.4e} bytes={per['bytes']:.4e} collectives="
+                f"{per['collective_by_op']} dominant={roof['dominant']} "
+                f"roofline_fraction={roof['roofline_fraction']:.4f}; the "
+                f"cell's process {wall:.1f} s, its meta twin's "
+                f"{meta_wall:.1f} s")
+    log(f"(s2) the {len(rows)} LM cells took "
+        f"{time.perf_counter() - t_phase:.2f}s")
+    return rows
 
 
 # -- (l) the paged CSR gather K5 ---------------------------------------------
@@ -3264,6 +3394,8 @@ def main(argv=None) -> int:
     lm = phase_lm(args.seed, dev, card)
     # (u) LM training (no kernel either)
     train = phase_train(args.seed, dev, card)
+    # (s2) the dry-run's LM cells on the card (no kernel either)
+    analysis["lm_cells"] = phase_lm_cells(card)
 
     # each kernel's launches on its own path
     counts = {

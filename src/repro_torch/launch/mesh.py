@@ -19,8 +19,8 @@ process.
 :func:`use_mesh` makes a mesh ambient for the code it wraps, and
 :func:`get_abstract_mesh` reads it (None outside), as
 ``repro.compat.use_mesh`` / ``get_abstract_mesh`` do for the reference's
-model code: the MoE layer's expert parallelism and
-``models.psharding.tp_size`` read it.
+model code: the MoE layer's expert parallelism,
+``models.psharding.constrain`` and ``models.psharding.tp_size`` read it.
 """
 from __future__ import annotations
 
@@ -106,7 +106,10 @@ def make_production_mesh(*, multi_pod: bool = False,
 
     Starts the fake group itself when none is started; a started group
     must be a fake one of the mesh's size.  ``device=None`` means the CUDA
-    card (raising without one), ``"cpu"`` the CPU."""
+    card (raising without one), ``"cpu"`` a CPU mesh, which also serves
+    a ``meta`` dry-run: its DTensors hold ``meta`` blocks the caller makes
+    (``launch.shardings.place`` of a ``meta`` tensor), so nothing is
+    allocated and no data moves."""
     shape, axes = PRODUCTION_SHAPES[bool(multi_pod)]
     world = math.prod(shape)
     dev_type = resolve_device(device).type

@@ -14,10 +14,17 @@ shape (dims counted from the end, so the count dim takes no axis) and
 gives the layer's tensor the spec without its leading entry.
 
 Placement: a :class:`NamedSharding` holds its mesh and spec, and
-:func:`place` moves a tensor to the mesh's device.  On one rank that is
-all a sharding does, as ``models.psharding.constrain`` returns its input;
-a spec that splits a tensor across ranks is refused (the port runs no
-sharded training).
+:func:`place` puts a tensor on it.  On a mesh of more than one rank that
+gives a ``DTensor`` (PyTorch's SPMD tensor, the counterpart of a GSPMD
+array) whose placements are the spec's (:func:`spec_placements`): each
+rank keeps its own block of a tensor it holds whole, and a ``meta``
+tensor (the reference's ``ShapeDtypeStruct``) becomes a DTensor of
+``meta`` blocks, or of zero-filled blocks on the mesh's device with
+``zeros=True`` (the dry-run on the card), so a rank never allocates more
+than its block.  :func:`distribute_params` does this to an ``LM``'s
+parameters, or to AdamW's moments, by :func:`param_shardings`.  On a
+``LocalMesh`` (one rank) a sharding only moves a tensor to the mesh's
+device, and every step computes what it computes unsharded.
 """
 from __future__ import annotations
 
@@ -28,9 +35,11 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
-from repro_torch.launch.mesh import mesh_device
+from repro_torch.launch.mesh import LocalMesh, mesh_device
 from repro_torch.models.psharding import mesh_axes
+from repro_torch.models.psharding import placements as spec_placements
 from repro_torch.models.transformer import reference_path
 
 DP_AXES = ("pod", "data")
@@ -150,16 +159,83 @@ class NamedSharding:
         return mesh_device(self.mesh)
 
 
-def place(t: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
-    """``t`` on the sharding's device.  A spec that splits ``t`` over more
-    than one rank raises: the port keeps whole tensors on each rank."""
-    sizes = mesh_axes(sharding.mesh)
-    for entry in sharding.spec:
-        axes = (entry,) if isinstance(entry, str) else (entry or ())
-        if math.prod(sizes.get(a, 1) for a in axes) > 1:
-            raise NotImplementedError(
-                f"spec {sharding.spec} splits a tensor across ranks")
-    return t.to(sharding.device)
+def is_multi(mesh) -> bool:
+    """True for a mesh of more than one rank."""
+    return not isinstance(mesh, LocalMesh) and mesh.size() > 1
+
+
+def local_shape(shape, spec, mesh) -> tuple[int, ...]:
+    """This rank's block of a tensor of ``shape`` split by ``spec`` (every
+    split even: ``pick_spec`` only assigns axes that divide)."""
+    sizes = mesh_axes(mesh)
+    out = list(shape)
+    for dim, entry in enumerate(spec or ()):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        n = math.prod(sizes[a] for a in axes)
+        if out[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split "
+                             f"{n} ways ({spec})")
+        out[dim] //= n
+    return tuple(out)
+
+
+def place(t: torch.Tensor, sharding: NamedSharding,
+          zeros: bool = False) -> torch.Tensor:
+    """``t`` placed by ``sharding``.  On a mesh of one rank: ``t`` on the
+    mesh's device.  On more: a ``DTensor`` of the spec's placements whose
+    local block is this rank's slice of ``t`` on the mesh's device (``t``
+    is the same on every rank; nothing moves between ranks), or, for a
+    ``meta`` ``t``, a ``meta`` block, or a zero-filled one on the mesh's
+    device when ``zeros``.  A DTensor ``t`` is redistributed."""
+    mesh = sharding.mesh
+    if not is_multi(mesh):
+        return t.to(sharding.device)
+    want = spec_placements(sharding.spec, mesh)
+    if isinstance(t, DTensor):
+        return t if tuple(t.placements) == want else t.redistribute(
+            mesh, want)
+    if t.is_meta:
+        shape = local_shape(t.shape, sharding.spec, mesh)
+        local = (torch.zeros(shape, dtype=t.dtype, device=sharding.device)
+                 if zeros else torch.empty(shape, dtype=t.dtype,
+                                           device="meta"))
+        return DTensor.from_local(local, mesh, want, run_check=False,
+                                  shape=t.shape,
+                                  stride=torch.empty(t.shape,
+                                                     device="meta").stride())
+    return distribute_tensor(t.to(sharding.device), mesh, want,
+                             src_data_rank=None)
+
+
+def place_tree(tree, shardings, zeros: bool = False):
+    """:func:`place` over matching dicts / lists of tensors and
+    shardings (None, or a tensor with no sharding, passes through)."""
+    if isinstance(tree, dict):
+        return {k: place_tree(v, shardings[k], zeros)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(place_tree(v, s, zeros)
+                          for v, s in zip(tree, shardings))
+    if tree is None or shardings is None:
+        return tree
+    return place(tree, shardings, zeros)
+
+
+@torch.no_grad()
+def distribute_params(module: nn.Module, mesh,
+                      zeros: bool = False) -> nn.Module:
+    """Replace each parameter of ``module`` (an ``LM``) by its
+    :func:`place` under :func:`param_shardings`, in place; returns
+    ``module``.  On one rank the parameters only move to the mesh's
+    device."""
+    shardings = param_shardings(module, mesh)
+    for name, p in list(module.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        mod = module.get_submodule(owner) if owner else module
+        setattr(mod, leaf, nn.Parameter(place(p.detach(), shardings[name],
+                                              zeros),
+                                        requires_grad=p.requires_grad))
+    return module
 
 
 def param_shardings(abstract_tree, mesh):

@@ -28,10 +28,29 @@ are the reference's:
   card takes from the host and the CPU from its own memory: so a program
   counts the same on both.
 * **Collectives**: each ``c10d`` op counts its input bytes per rank under
-  the reference's kind (``all-to-all``, ``all-reduce``, ``all-gather``:
-  the ones the port runs) and its call once; its input and output
-  buffers count as bytes, as the reference counts a collective's
-  operands and results.  Any other ``c10d`` op raises.
+  the reference's kind (``all-to-all``, ``all-reduce``, ``all-gather``,
+  ``reduce-scatter``: the ones the port runs) and its call once; its
+  input and output buffers count as bytes, as the reference counts a
+  collective's operands and results.  Any other ``c10d`` op raises.
+* **Sharded programs**: a step on ``DTensor``s (``launch.shardings``)
+  is counted at this rank's shapes.  The mode declines every op whose
+  operands are DTensors (it returns ``NotImplemented``), so DTensor runs
+  it and the mode sees the local ops DTensor issues on the rank's
+  blocks, with the rules above; the ops DTensor runs on its own
+  ``FakeTensor``s to propagate shapes move nothing and are not counted.
+  The functional collectives DTensor issues to redistribute count as
+  the reference's kinds (``all_gather_into_tensor`` as all-gather,
+  ``reduce_scatter_tensor`` as reduce-scatter, ``all_reduce`` as
+  all-reduce, ``all_to_all_single`` and DTensor's own
+  ``shard_dim_alltoall`` as all-to-all), each at its input bytes per
+  rank, and ``wait_tensor`` (or the autograd wrapper of a result)
+  counts nothing.  ``meta`` tensors (the dry-run's stand-ins) count by
+  their shapes, as real ones do.
+  Two limits: DTensor picks its own collectives (on a CPU mesh it runs
+  an all-to-all as an all-gather), so the collective bytes are this
+  port's, not GSPMD's; and bytes are counted at eager op boundaries,
+  where XLA counts fused kernels, so the port's bytes exceed the
+  reference's for the same program.
 * **Loops**: eager execution runs every iteration, so every iteration
   counts: the reference's trip-count rule without a parser.
 * **Kernel calls**: a wrapper in ``repro_torch.kernels`` reports its call
@@ -49,6 +68,8 @@ are for an SPMD module.
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
@@ -57,7 +78,8 @@ from repro_torch.kernels import _report
 
 # Ops counted at zero FLOPs: every op the port's programs run that is
 # neither a dot nor a convolution nor a view (elementwise, compare,
-# reduce, scan, sort, search, gather/scatter, index, copy, fill, factory).
+# reduce, scan, sort, search, gather/scatter, index, copy, fill, factory;
+# the second block: the LM steps' forward and backward ops).
 ZERO_FLOP_OPS = frozenset(f"aten.{n}" for n in """
     __lshift__ __rshift__ _local_scalar_dense _to_copy add any arange
     bitwise_and bitwise_and_ bitwise_not bitwise_or cat clamp clamp_ clone
@@ -65,6 +87,12 @@ ZERO_FLOP_OPS = frozenset(f"aten.{n}" for n in """
     full_like gather ge gt index index_put_ lt masked_fill_ minimum mul ne
     neg ones remainder scalar_tensor scatter_ scatter_reduce_ searchsorted
     sort stack sub sum where zeros zeros_like
+    _softmax _softmax_backward_data add_ amax argmax argsort cos detach_
+    div_ exp flip gelu gelu_backward index_add index_put index_select le
+    log maximum mean mul_ new_zeros nonzero ones_like pow reciprocal rsqrt
+    rsub scatter select_backward sigmoid sigmoid_backward silu
+    silu_backward sin slice_backward softplus softplus_backward sqrt sqrt_
+    sub_ tril
 """.split())
 
 _VIEWS = frozenset({"aten._unsafe_view"})      # views outside is_view
@@ -78,7 +106,18 @@ COLLECTIVES = {
     "c10d.alltoall_base_": ("all-to-all", "input", "output"),
     "c10d.allreduce_": ("all-reduce", "tensors", "tensors"),
     "c10d.allgather_": ("all-gather", "input_tensors", "output_tensors"),
+    # the functional collectives DTensor issues; None: the op's result
+    "_c10d_functional.all_gather_into_tensor": ("all-gather", "input",
+                                                None),
+    "_c10d_functional.reduce_scatter_tensor": ("reduce-scatter", "input",
+                                               None),
+    "_c10d_functional.all_reduce": ("all-reduce", "input", None),
+    "_c10d_functional.all_to_all_single": ("all-to-all", "input", None),
+    "_dtensor.shard_dim_alltoall": ("all-to-all", "input", None),
 }
+# waits and autograd wrappers of a collective's result: no data moves
+_WAIT = frozenset({"_c10d_functional.wait_tensor",
+                   "_c10d_functional._wrap_tensor_autograd"})
 
 
 def _nbytes(values) -> int:
@@ -168,16 +207,22 @@ class StepAnalysis(TorchDispatchMode):
         return out
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented         # DTensor runs it: its local ops
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if not self._paused:
+        if not self._paused and not any(
+                isinstance(t, FakeTensor)
+                for t in tree_leaves((args, kwargs, out))):
             self._count(func, args, kwargs, out)
         return out
 
     def _count(self, func, args, kwargs, out) -> None:
         name = str(func.overloadpacket)
-        if func.namespace == "c10d":
-            self._collective(name, func, args, kwargs)
+        if name in _WAIT:
+            return
+        if func.namespace in ("c10d", "_c10d_functional", "_dtensor"):
+            self._collective(name, func, args, kwargs, out)
             return
         if name == "aten.lift_fresh":
             self._host[id(out)] = out               # kept: ids stay unique
@@ -206,7 +251,7 @@ class StepAnalysis(TorchDispatchMode):
             reads.append(v)
         self.bytes += _nbytes(reads) + _nbytes(out)
 
-    def _collective(self, name: str, func, args, kwargs) -> None:
+    def _collective(self, name: str, func, args, kwargs, out) -> None:
         if name not in COLLECTIVES:
             raise NotImplementedError(f"StepAnalysis has no rule for {func}")
         kind, src, dst = COLLECTIVES[name]
@@ -216,4 +261,4 @@ class StepAnalysis(TorchDispatchMode):
         self.collective_count += 1
         self.collective_by_op[kind] = self.collective_by_op.get(kind, 0.0) \
             + nin
-        self.bytes += nin + _nbytes(given[dst])
+        self.bytes += nin + _nbytes(out if dst is None else given[dst])

@@ -9,6 +9,11 @@ injection/retry and straggler flagging are the reference's code paths.
       --reduced --steps 40 --global-batch 8 --seq-len 128 --ckpt-every 10 \
       --inject-failures 17 --ckpt-dir /tmp/repro_ckpt [--device cpu]
 
+One rank only: training across ranks waits (ROADMAP.md, A12d).  The
+sharded train step itself runs on any mesh (``train.step``), but this
+driver's weights, data feed and checkpoints are one rank's, so with a
+started process group of more than one rank :func:`train` refuses.
+
 The weights are drawn from ``seed`` by a generator on the device, in
 bf16.  The stub frontends' float inputs (``embeds``, ``frames``) enter
 the model in the weights' dtype: ``torch.einsum`` does not promote a
@@ -30,7 +35,7 @@ from repro_torch.device import resolve_device
 from repro_torch.ft.failures import (FailureInjector, InjectedFailure,
                                      StepTimer)
 from repro_torch.launch.mesh import make_test_mesh
-from repro_torch.launch.shardings import place
+from repro_torch.launch.shardings import is_multi, place
 from repro_torch.models.config import ArchConfig
 from repro_torch.train.step import (TrainConfig, abstract_train_state,
                                     build_train_step, init_train_state,
@@ -73,6 +78,10 @@ def train(run: RunConfig) -> dict:
            else get_config(run.arch))
     dev = resolve_device(run.device)
     mesh = make_test_mesh(device=dev)
+    if is_multi(mesh):
+        raise NotImplementedError(
+            "launch.train runs on one rank: its weights, data feed and "
+            "checkpoints are not sharded (ROADMAP.md, A12d)")
     tcfg = TrainConfig(microbatches=run.microbatches)
     state = _init_state(cfg, run, dev)
     abstract = abstract_train_state(cfg)

@@ -14,6 +14,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from repro_torch.models import psharding as psh
 
 
 def new_param(shape, dtype, device) -> nn.Parameter:
@@ -107,26 +110,54 @@ class MLP(nn.Module):
 
 
 def mlp_forward(x: torch.Tensor, p: MLP, act: str) -> torch.Tensor:
+    hint = ("batch",) + (None,) * (x.ndim - 2) + ("ff",)
     if act == "swiglu":
-        g = torch.einsum("...d,df->...f", x, p.w_gate)
-        u = torch.einsum("...d,df->...f", x, p.w_up)
+        g = psh.einsum("...d,df->...f", x, p.w_gate)
+        u = psh.einsum("...d,df->...f", x, p.w_up)
         h = F.silu(g.float()).to(x.dtype) * u
     else:  # gelu
-        h = torch.einsum("...d,df->...f", x, p.w_up)
+        h = psh.einsum("...d,df->...f", x, p.w_up)
         h = gelu(h.float()).to(x.dtype)
-    return torch.einsum("...f,fd->...d", h, p.w_down)
+    h = psh.constrain(h, *hint)
+    return psh.einsum("...f,fd->...d", h, p.w_down)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: torch.Tensor | None = None,
                        valid_vocab: int | None = None) -> torch.Tensor:
     """NLL over (possibly vocab-padded) logits; padded columns masked."""
+    if isinstance(logits, DTensor):
+        return _sharded_cross_entropy(logits, labels, mask, valid_vocab)
     logits = logits.float()
     if valid_vocab is not None and valid_vocab < logits.shape[-1]:
         col = torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(col < valid_vocab, logits, -1e30)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def _sharded_cross_entropy(logits, labels, mask, valid_vocab):
+    """:func:`cross_entropy_loss` of DTensor logits whose vocab dim may be
+    split (the reference's ``"vocab"`` hint): every step reduces over the
+    vocab with a partial max or sum that DTensor combines over the ranks,
+    and the label's logit is a masked sum (``torch.gather`` along a split
+    dim has no rule).  The column index is split as the logits' vocab
+    dim, so no rank builds a whole [.., vocab] mask."""
+    logits = logits.float()
+    nv = logits.shape[-1]
+    col = psh.shard_like(torch.arange(nv, device=logits.device), logits,
+                         {logits.ndim - 1: 0})
+    if valid_vocab is not None and valid_vocab < nv:
+        logits = torch.where(col < valid_vocab, logits, -1e30)
+    top = torch.amax(logits, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(logits - top), dim=-1)) + top[..., 0]
+    hit = col == labels[..., None].long()
+    ll = torch.sum(torch.where(hit, logits, 0.0), dim=-1)
     nll = lse - ll
     if mask is not None:
         mask = mask.float()

@@ -26,13 +26,17 @@ residual.  Capacity is ``max(int(chunk * top_k / e * capacity_factor),
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.launch.mesh import axes_group, axis_size, get_abstract_mesh
+from repro_torch.models import psharding as psh
 from repro_torch.models.layers import new_param, normal_
 
 
@@ -93,6 +97,13 @@ def _expert_ffn(xe, wg, wu, wd, dtype):
 
 
 def _chunk_onehot(xi, probs, p: MoE, *, top_k, e, cap, chunk):
+    return _onehot_local(xi, probs, p.w_gate, p.w_up, p.w_down, top_k=top_k,
+                         e=e, lo=0, el=e, cap=cap, chunk=chunk)
+
+
+def _onehot_local(xi, probs, wg, wu, wd, *, top_k, e, lo, el, cap, chunk):
+    """The one-hot dispatch through the experts [lo, lo + el): queue
+    positions over every expert, only those experts' slots used."""
     gate_vals, gate_idx = _gates(probs, top_k)
     onehot = F.one_hot(gate_idx, e).float()                  # [c, k, e]
     # position of each (token, slot) within its expert queue
@@ -103,9 +114,10 @@ def _chunk_onehot(xi, probs, p: MoE, *, top_k, e, cap, chunk):
     # then cut
     disp = F.one_hot(torch.where(fits, pos, float(cap)).long(),
                      cap + 1)[..., :cap].float() * fits[..., None]
+    disp = disp[:, :, lo:lo + el]
     # dispatch: [c,k,e,cap] x [c,d] -> [e, cap, d]
     xe = torch.einsum("ckeo,cd->eod", disp, xi.float()).to(xi.dtype)
-    ye = _expert_ffn(xe, p.w_gate, p.w_up, p.w_down, xi.dtype)
+    ye = _expert_ffn(xe, wg, wu, wd, xi.dtype)
     comb = torch.einsum("ckeo,ck->ckeo", disp, gate_vals.float())
     yi = torch.einsum("ckeo,eod->cd", comb, ye.float())
     return yi.to(xi.dtype)
@@ -228,10 +240,85 @@ def _ep_applicable(mesh, e) -> bool:
     return tp > 1 and e % tp == 0
 
 
+def _sharded_moe(x: DTensor, p: MoE, *, top_k: int, capacity_factor: float,
+                 chunk: int, dispatch: str):
+    """The MoE layer on DTensors, each rank on its own blocks
+    (``local_map``): its tokens (split by batch over ``data``, whole over
+    the expert ranks) are routed over every expert and dispatched to its
+    block of experts (split as the expert weights' spec splits them, the
+    weights' FSDP split over ``data`` gathered); the ranks' outputs are a
+    partial sum over the expert ranks.  This is ``ep``'s algorithm, the
+    reference's ``shard_map``, and ``ep`` chunks each rank's tokens as it
+    does.  ``gather`` and ``onehot`` chunk the global tokens: where a
+    chunk spans ranks of ``data`` the tokens are gathered over ``data``
+    first (a chunk's queues sort all its tokens).  The Switch loss
+    averages the per-expert fractions over the token ranks before their
+    product, as ``ep`` does (a partial sum of each rank's share)."""
+    mesh = x.device_mesh
+    b, s, d = x.shape
+    e = p.router.shape[1]
+    w_pl = tuple(q if isinstance(q, Shard) and q.dim == 0 else Replicate()
+                 for q in p.w_gate.placements)
+    expert_dims = [i for i, q in enumerate(w_pl) if isinstance(q, Shard)]
+    el = e // math.prod(mesh.size(i) for i in expert_dims)
+    lo = 0
+    for i in expert_dims:
+        lo = lo * mesh.size(i) + mesh.get_local_rank(i)
+    lo *= el
+    x_pl = [q if isinstance(q, Shard) and q.dim == 0 and i not in expert_dims
+            else Replicate() for i, q in enumerate(x.placements)]
+    token_ranks = math.prod(mesh.size(i) for i, q in enumerate(x_pl)
+                            if isinstance(q, Shard))
+    if dispatch != "ep" and (b * s // token_ranks) % min(chunk, b * s):
+        # a global chunk spans token ranks: its queues need all its tokens
+        x_pl = [Replicate()] * mesh.ndim
+    x_pl = tuple(x_pl)
+    y_pl = tuple(Partial() if i in expert_dims else q
+                 for i, q in enumerate(x_pl))
+    # the Switch fractions: each rank's share of the mean, summed over
+    # the token ranks (a mean of equal shards) and the expert ranks (which
+    # all hold the same value), so that the gradient reaches the router
+    # once from each token, not once from each expert rank
+    frac_pl = tuple(Partial() if isinstance(q, Partial) or
+                    isinstance(x_pl[i], Shard) else Replicate()
+                    for i, q in enumerate(y_pl))
+    frac_ranks = math.prod(mesh.size(i) for i, q in enumerate(frac_pl)
+                           if isinstance(q, Partial))
+    eff_chunk = chunk if dispatch == "ep" else min(chunk, b * s)
+
+    def body(xl, router, wg, wu, wd):
+        bl = xl.shape[0]
+        xc, probs_all, logits_all, c, cap = _chunks(
+            xl, router, eff_chunk, top_k, capacity_factor)
+        if dispatch == "onehot":
+            yc = torch.stack([_onehot_local(
+                xi, probs, wg, wu, wd, top_k=top_k, e=e, lo=lo, el=el,
+                cap=cap, chunk=c) for xi, probs in zip(xc, probs_all)])
+        else:
+            yc = torch.stack([_dispatch_local(
+                xi, probs, wg, wu, wd, top_k=top_k, e=e, lo=lo, el=el,
+                cap=cap) for xi, probs in zip(xc, probs_all)])
+        y = yc.reshape(-1, d)[: bl * s].reshape(bl, s, d)
+        me = probs_all.mean((0, 1)) / frac_ranks
+        top1 = F.one_hot(torch.argmax(logits_all, -1), e).float().mean(
+            (0, 1)) / frac_ranks
+        return y, me, top1
+
+    y, me, top1 = psh.local_map(
+        body, (y_pl, frac_pl, frac_pl),
+        (x_pl, (Replicate(),) * mesh.ndim, w_pl, w_pl, w_pl), mesh)(
+            x, p.router, p.w_gate, p.w_up, p.w_down)
+    return y, e * torch.sum(me * top1)
+
+
 def moe_forward(x: torch.Tensor, p: MoE, *, top_k: int,
                 capacity_factor: float = 1.25, chunk: int = 1024,
                 dispatch: str = "gather"):
     """x: [B, S, d] -> (y [B, S, d], aux_loss scalar)."""
+    if isinstance(x, DTensor):
+        return _sharded_moe(x, p, top_k=top_k,
+                            capacity_factor=capacity_factor, chunk=chunk,
+                            dispatch=dispatch)
     if dispatch == "ep":
         mesh = get_abstract_mesh()
         if _ep_applicable(mesh, p.router.shape[1]):

@@ -11,7 +11,9 @@ wrapped in the Griffin recurrent-branch structure: linear in, GeLU (tanh)
 gate branch, linear out.  Training runs the recurrence as a log-depth
 (Hillis-Steele) scan, the reference as ``lax.associative_scan``: both
 combine the same float32 terms in another order.  Decode carries
-(conv window, h) in the cache.
+(conv window, h) in the cache.  On DTensors the recurrence's width is
+split over ``model`` (the reference's ``"ff"`` hints) and the scan runs
+along the unsplit sequence.
 """
 from __future__ import annotations
 
@@ -19,7 +21,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
+from repro_torch.models import psharding as psh
 from repro_torch.models.layers import gelu, new_param, normal_
 
 _C = 8.0
@@ -58,15 +62,18 @@ class RGLRU(nn.Module):
 
 
 def _conv(u, w, b):
+    if isinstance(u, DTensor):
+        return psh.along_seq(_conv, (u,), (w, b))
     k = w.shape[0]
     up = F.pad(u, (0, 0, k - 1, 0))
     return sum(up[:, i: i + u.shape[1], :] * w[i] for i in range(k)) + b
 
 
 def _gates(x, p: RGLRU):
-    r = torch.sigmoid(torch.einsum("bsw,wv->bsv", x, p.w_r).float())
-    i = torch.sigmoid(torch.einsum("bsw,wv->bsv", x, p.w_i).float())
-    log_a = -_C * r * F.softplus(-p.lam)   # log(sigmoid(lam)^(c r))
+    r = torch.sigmoid(psh.einsum("bsw,wv->bsv", x, p.w_r).float())
+    i = torch.sigmoid(psh.einsum("bsw,wv->bsv", x, p.w_i).float())
+    # log(sigmoid(lam)^(c r))
+    log_a = -_C * r * psh.pointwise(F.softplus, -p.lam)
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * i * x.float()
     return a, gated
@@ -77,6 +84,8 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     steps (Hillis-Steele): each step composes every prefix with the one
     ``step`` positions before it, (a, b) after (a', b') being
     (a' a, b' a + b)."""
+    if isinstance(a, DTensor):
+        return psh.along_seq(linear_scan, (a, b), ())
     s = a.shape[1]
     step = 1
     while step < s:
@@ -89,13 +98,16 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def rglru_forward(x_in: torch.Tensor, p: RGLRU) -> torch.Tensor:
     """x_in: [B, S, d] -> [B, S, d]."""
-    x = torch.einsum("bsd,dw->bsw", x_in, p.w_x)
-    gate = gelu(torch.einsum("bsd,dw->bsw", x_in, p.w_gate_branch).float())
+    x = psh.constrain(psh.einsum("bsd,dw->bsw", x_in, p.w_x),
+                      "batch", None, "ff")
+    gate = gelu(psh.einsum("bsd,dw->bsw", x_in, p.w_gate_branch).float())
     x = _conv(x, p.conv_w, p.conv_b)
     a, gated = _gates(x, p)
+    a = psh.constrain(a, "batch", None, "ff")
+    gated = psh.constrain(gated, "batch", None, "ff")
     h = linear_scan(a, gated)
     y = (h * gate).to(x_in.dtype)
-    return torch.einsum("bsw,wd->bsd", y, p.w_out)
+    return psh.einsum("bsw,wd->bsd", y, p.w_out)
 
 
 def rglru_init_cache(batch: int, width: int, conv_width: int, dtype,
@@ -108,13 +120,13 @@ def rglru_init_cache(batch: int, width: int, conv_width: int, dtype,
 
 def rglru_decode(x_in: torch.Tensor, p: RGLRU, cache: dict):
     """x_in: [B, 1, d]."""
-    x = torch.einsum("bsd,dw->bsw", x_in, p.w_x)[:, 0]
-    gate = gelu(torch.einsum("bsd,dw->bsw", x_in, p.w_gate_branch)
+    x = psh.einsum("bsd,dw->bsw", x_in, p.w_x)[:, 0]
+    gate = gelu(psh.einsum("bsd,dw->bsw", x_in, p.w_gate_branch)
                 .float())[:, 0]
     hist = torch.cat([cache["conv"], x[:, None]], dim=1)
-    x = torch.einsum("bkw,kw->bw", hist, p.conv_w) + p.conv_b
+    x = psh.einsum("bkw,kw->bw", hist, p.conv_w) + p.conv_b
     a, gated = _gates(x[:, None], p)
     h = a[:, 0] * cache["h"] + gated[:, 0]
     y = (h * gate).to(x_in.dtype)
-    out = torch.einsum("bw,wd->bd", y, p.w_out)[:, None]
+    out = psh.einsum("bw,wd->bd", y, p.w_out)[:, None]
     return out, {"conv": hist[:, 1:], "h": h}

@@ -10,18 +10,26 @@ reference's names and arguments, ``params`` being the :class:`LM`
 module; a layer's ``forward`` is the reference's ``_apply_layer_train``
 for its kind, ``decode`` its ``_apply_layer_decode``.  Decode caches are
 the reference's: one dict a segment, each leaf stacked over the
-segment's layers.  ``remat`` and ``seq_parallel`` change no value on one
-rank, and the port ignores them.
+segment's layers.  ``remat`` keeps each layer's input alone for the
+backward pass (``torch.utils.checkpoint``).  On DTensors the reference's
+``psharding.constrain`` hints apply: the embedding's output and the
+logits, and with ``seq_parallel`` the residual stream split over
+``model`` by sequence at each layer's entry and exit (Megatron-SP); on
+plain tensors they change nothing.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import psharding as psh
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ArchConfig, layer_segments
@@ -38,6 +46,18 @@ def _window_for(cfg: ArchConfig, kind: str) -> int:
     if kind == "attn" and cfg.window:
         return cfg.window
     return 0
+
+
+def _residual(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x + y``.  A sharded branch output ``y`` (often a partial sum over
+    ``model`` after a row-split projection) is first laid out as the
+    residual stream ``x``: left to choose, DTensor reduce-scatters it
+    along an arbitrary dim and the next layer's views of ``x`` turn into
+    strided layouts whose redistribution search does not end."""
+    if isinstance(y, DTensor) and isinstance(x, DTensor) \
+            and y.placements != x.placements:
+        y = y.redistribute(x.device_mesh, x.placements)
+    return x + y
 
 
 def _norm(d: int, device) -> nn.Parameter:
@@ -104,19 +124,19 @@ class AttentionLayer(nn.Module):
         eps = cfg.norm_eps
         h = self._norm1(x, eps)
         theta = 0.0 if self.kind in ("enc", "dec") else cfg.rope_theta
-        x = x + attn.attention_block(
+        x = _residual(x, attn.attention_block(
             h, self.attn, positions=positions, causal=self.kind != "enc",
             window=_window_for(cfg, self.kind), rope_theta=theta,
-            flash_threshold=cfg.flash_threshold)
+            flash_threshold=cfg.flash_threshold))
         if self.kind == "dec":
             hx = layer_norm(x, 1.0 + self.ln_x, self.ln_x_b, eps)
-            k = torch.einsum("bsd,dhk->bshk", enc_out, self.xattn.wk)
-            v = torch.einsum("bsd,dhk->bshk", enc_out, self.xattn.wv)
-            x = x + attn.attention_block(
+            k = psh.einsum("bsd,dhk->bshk", enc_out, self.xattn.wk)
+            v = psh.einsum("bsd,dhk->bshk", enc_out, self.xattn.wv)
+            x = _residual(x, attn.attention_block(
                 hx, self.xattn, positions=positions, causal=False,
-                rope_theta=0.0, kv_override=(k, v))
+                rope_theta=0.0, kv_override=(k, v)))
         y, aux = self._ffn(self._norm2(x, eps), cfg)
-        return x + y, aux
+        return _residual(x, y), aux
 
     def decode(self, x, cache: dict, pos: int, cfg: ArchConfig):
         eps = cfg.norm_eps
@@ -126,19 +146,19 @@ class AttentionLayer(nn.Module):
                                       {"k": cache["k"], "v": cache["v"]},
                                       pos, window=_window_for(cfg, self.kind),
                                       rope_theta=theta)
-        x = x + y
+        x = _residual(x, y)
         new_cache = dict(cache)
         new_cache.update(kv)
         if self.kind == "dec":
             # the cross-attention cache (xk, xv) is read, never filled
             hx = layer_norm(x, 1.0 + self.ln_x, self.ln_x_b, eps)
-            x = x + attn.attention_block(
+            x = _residual(x, attn.attention_block(
                 hx, self.xattn,
                 positions=torch.full((x.shape[0], 1), pos, device=x.device),
                 causal=False, rope_theta=0.0,
-                kv_override=(cache["xk"], cache["xv"]))
+                kv_override=(cache["xk"], cache["xv"])))
         y, _ = self._ffn(self._norm2(x, eps), cfg)
-        return x + y, new_cache
+        return _residual(x, y), new_cache
 
 
 class SSMLayer(nn.Module):
@@ -156,9 +176,9 @@ class SSMLayer(nn.Module):
 
     def forward(self, x, positions, cfg: ArchConfig, enc_out=None):
         h = rms_norm(x, self.ln1, cfg.norm_eps)
-        return x + ssm_mod.ssm_forward(h, self.ssm, expand=cfg.ssm_expand,
-                                       head_dim=cfg.ssm_head_dim,
-                                       state=cfg.ssm_state), None
+        return _residual(x, ssm_mod.ssm_forward(
+            h, self.ssm, expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
+            state=cfg.ssm_state)), None
 
     def decode(self, x, cache: dict, pos: int, cfg: ArchConfig):
         h = rms_norm(x, self.ln1, cfg.norm_eps)
@@ -166,7 +186,7 @@ class SSMLayer(nn.Module):
                                           expand=cfg.ssm_expand,
                                           head_dim=cfg.ssm_head_dim,
                                           state=cfg.ssm_state)
-        return x + y, new_cache
+        return _residual(x, y), new_cache
 
 
 class RGLRULayer(nn.Module):
@@ -186,16 +206,16 @@ class RGLRULayer(nn.Module):
 
     def forward(self, x, positions, cfg: ArchConfig, enc_out=None):
         eps = cfg.norm_eps
-        x = x + rglru_mod.rglru_forward(rms_norm(x, self.ln1, eps),
-                                        self.rglru)
-        return x + self.mlp(rms_norm(x, self.ln2, eps)), None
+        x = _residual(x, rglru_mod.rglru_forward(rms_norm(x, self.ln1, eps),
+                                                 self.rglru))
+        return _residual(x, self.mlp(rms_norm(x, self.ln2, eps))), None
 
     def decode(self, x, cache: dict, pos: int, cfg: ArchConfig):
         eps = cfg.norm_eps
         y, new_cache = rglru_mod.rglru_decode(rms_norm(x, self.ln1, eps),
                                               self.rglru, cache)
-        x = x + y
-        return x + self.mlp(rms_norm(x, self.ln2, eps)), new_cache
+        x = _residual(x, y)
+        return _residual(x, self.mlp(rms_norm(x, self.ln2, eps))), new_cache
 
 
 LAYERS = {**{k: AttentionLayer for k in ATTN_KINDS}, "ssm": SSMLayer,
@@ -270,11 +290,15 @@ def apply_segment_train(kind: str, layers: nn.ModuleList, x, positions,
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in layers:
+        if cfg.seq_parallel:
+            x = psh.constrain(x, "batch", "q_seq", None)
         if remat:
             x, a = checkpoint(layer, x, positions, cfg, enc_out,
                               use_reentrant=False)
         else:
             x, a = layer(x, positions, cfg, enc_out)
+        if cfg.seq_parallel:
+            x = psh.constrain(x, "batch", "q_seq", None)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -287,7 +311,8 @@ def forward_train(params: LM, cfg: ArchConfig, tokens=None, embeds=None,
     if embeds is not None:
         x = embeds                       # vlm stub: precomputed embeddings
     else:
-        x = params.embed[tokens.long()]
+        x = _embed(params.embed, tokens)
+    x = psh.constrain(x, "batch", None, None)
     b, s, d = x.shape
     positions = torch.arange(s, device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -311,8 +336,44 @@ def forward_train(params: LM, cfg: ArchConfig, tokens=None, embeds=None,
         aux_total = aux_total + aux
         idx += 1
     x = rms_norm(x, params.final_ln, cfg.norm_eps)
-    logits = torch.einsum("bsd,vd->bsv", x, params.embed)
+    logits = psh.einsum("bsd,vd->bsv", x, params.embed)
+    logits = psh.constrain(logits, "batch", None, "vocab")
     return logits, aux_total
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` for ``tokens``.  A sharded table is looked up on
+    each rank's blocks (``local_map``): the table whole along d (its FSDP
+    split over ``data`` gathered), its vocab split over ``model`` kept;
+    each rank looks up the tokens that fall in its rows, zeros for the
+    rest, and the ranks' partial rows are summed over ``model`` (an
+    all-reduce: the vocab-parallel embedding).  The tokens keep their
+    batch split."""
+    if not isinstance(table, DTensor):
+        return table[tokens.long()]
+    mesh = table.device_mesh
+    t_pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in table.placements)
+    split = [i for i, p in enumerate(t_pl) if isinstance(p, Shard)]
+    ids_pl = tuple(tokens.placements) if isinstance(tokens, DTensor) else \
+        (Replicate(),) * mesh.ndim
+    out_pl = tuple(Partial() if i in split else ids_pl[i]
+                   for i in range(mesh.ndim))
+    rows = table.shape[0] // math.prod(mesh.size(i) for i in split)
+    lo = 0
+    for i in split:                      # this rank's first row
+        lo = lo * mesh.size(i) + mesh.get_local_rank(i)
+    lo *= rows
+
+    def body(tl, ids):
+        ids = ids.long() - lo
+        inside = (ids >= 0) & (ids < rows)
+        out = tl[torch.where(inside, ids, 0)]
+        return torch.where(inside[..., None], out, 0.0).to(tl.dtype)
+
+    out = psh.local_map(body, (out_pl,), (t_pl, ids_pl), mesh)(table, tokens)
+    return out.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                   for p in out.placements])
 
 
 def prefill_step(params: LM, cfg: ArchConfig, batch: dict):
@@ -378,7 +439,7 @@ def serve_step(params: LM, cfg: ArchConfig, caches: list, tokens, pos: int):
 
     Returns (logits [B, vocab_size], new caches); ``caches`` is not
     modified."""
-    x = params.embed[tokens.long()][:, None]          # [B, 1, d]
+    x = _embed(params.embed, tokens)[:, None]         # [B, 1, d]
     if cfg.encoder_layers:
         x = x + sinusoidal(1, cfg.d_model, x)
     new_caches = []
@@ -395,5 +456,6 @@ def serve_step(params: LM, cfg: ArchConfig, caches: list, tokens, pos: int):
         new_caches.append({k: torch.stack([c[k] for c in outs])
                            for k in outs[0]})
     x = rms_norm(x, params.final_ln, cfg.norm_eps)
-    logits = torch.einsum("bsd,vd->bsv", x[:, 0:1], params.embed)[:, 0]
+    logits = psh.einsum("bsd,vd->bsv", x[:, 0:1], params.embed)[:, 0]
+    logits = psh.constrain(logits, "batch", "vocab")
     return logits[:, : cfg.vocab_size], new_caches

@@ -9,6 +9,11 @@ reference's arithmetic in its order, in float32, one parameter at a time
 ``v`` in place: the counterpart of the reference's donated state.  The
 per-leaf order keeps the float32 temporaries to a few copies of the
 largest parameter rather than of the whole model.
+
+Sharded parameters (``DTensor``s) keep moments sharded like themselves,
+and the update runs on each rank's blocks.  :func:`global_norm` stays
+the norm over whole parameters: each block's sum of squares is a partial
+sum that DTensor reduces over the ranks before the square root.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import dataclasses
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +62,8 @@ def init_state(params) -> dict:
     dev = next(iter(named.values())).device
 
     def zeros(p):
+        if isinstance(p, DTensor):      # sharded like its parameter
+            return torch.zeros_like(p, dtype=torch.float32)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
     return {
@@ -74,7 +82,8 @@ def _decay_mask(name: str) -> bool:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the float32 sum of squares over ``tensors``."""
+    """sqrt of the float32 sum of squares over ``tensors`` (whole
+    tensors: over every rank's block of a DTensor)."""
     leaves = [torch.sum(torch.square(x.float())) for x in tensors]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 

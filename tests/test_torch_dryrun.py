@@ -1,7 +1,9 @@
 """The port's dry-run (``repro_torch.launch.dryrun``): the abstract engine
 of ``DistributedBFS.abstract`` on the production meshes against the
-reference's shard arithmetic, the cell list against the reference's BFS
-cells, and one cell run end to end on the CPU."""
+reference's shard arithmetic, the cell list against the reference's
+whole list, one BFS cell run end to end on the CPU and one LM cell
+against the reference's compiled one (the LM cells' own tests are in
+``test_torch_lm_dryrun.py``)."""
 import json
 import subprocess
 import sys
@@ -82,17 +84,43 @@ def test_abstract_engine_equals_reference(production_mesh, graph, dispatch,
 
 
 def test_cells_equal_reference_bfs_cells(tmp_path):
+    """The whole cell list, LM and BFS cells on both meshes, in the
+    reference's order and with its record paths."""
     code = ("import json, sys\n"
             "from repro.launch.dryrun import all_cells\n"
-            "print(json.dumps([c for c in all_cells(sys.argv[1]) "
-            "if '--bfs' in c[1]]))\n")
+            "print(json.dumps(all_cells(sys.argv[1])))\n")
     r = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
                        env=_env(), capture_output=True, text=True,
                        timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     want = [tuple(c) for c in json.loads(r.stdout)]
     assert dryrun.all_cells(str(tmp_path)) == want
-    assert len(want) == 8
+    assert len(want) == 88
+    assert sum("--bfs" in c[1] for c in want) == 8
+
+
+def test_lm_cell_against_reference_compile(tmp_path, production_mesh):
+    """llama3.2-3b decode_32k on 16x16 cut to 2 layers: the reference
+    lowers and compiles it (in a subprocess: its dry-run sets a
+    512-device ``XLA_FLAGS`` at import); the port's cell on ``meta`` has
+    its argument bytes (the reference's also hold ``pos``, an int32
+    scalar the port's step takes as a host int) and FLOPs within 10% of
+    its per-device count (both count dot FLOPs alone)."""
+    code = ("import json\n"
+            "from repro.launch.dryrun import lower_lm_cell\n"
+            "r = lower_lm_cell('llama3.2-3b', 'decode_32k', False, "
+            "overrides={'num_layers': 2})\n"
+            "print(json.dumps([r['memory_analysis'], r['per_device']]))\n")
+    r = subprocess.run([sys.executable, "-c", code], env=_env(),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    mem, per = json.loads(r.stdout.strip().splitlines()[-1])
+    rec = dryrun.lower_lm_cell("llama3.2-3b", "decode_32k", False,
+                               overrides={"num_layers": 2}, device="cpu")
+    assert rec["memory"]["argument_size_in_bytes"] + 4 == \
+        mem["argument_size_in_bytes"]
+    got, want = rec["per_device"]["flops"], per["flops"]
+    assert abs(got - want) <= 0.1 * want, (got, want)
 
 
 def test_one_cell_end_to_end_on_cpu(tmp_path):

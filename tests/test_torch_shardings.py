@@ -146,14 +146,33 @@ def test_pick_spec_matches_reference():
 
 
 def test_place_on_one_rank():
+    """One rank: ``place`` only moves the tensor.  More ranks (the 16x16
+    production mesh over a fake group): a DTensor of the spec's
+    placements, holding this rank's block (a ``meta`` one for a ``meta``
+    tensor, zeros on the mesh's device with ``zeros=True``)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
     mesh = tmesh.make_test_mesh(device="cpu")
     t = torch.arange(6)
     assert tsh.place(t, tsh.NamedSharding(mesh, ("data",))) is t
-    big = fake_mesh(MESHES["16x16"])
-    with pytest.raises(NotImplementedError):
-        tsh.place(t, tsh.NamedSharding(big, ("data",)))
     assert tsh.replicated(mesh).spec == ()
     assert tsh.param_shardings(None, mesh) is None
+    big = tmesh.make_production_mesh(device="cpu")
+    try:
+        got = tsh.place(torch.arange(32), tsh.NamedSharding(big, ("data",)))
+        assert isinstance(got, DTensor)
+        assert tuple(got.placements) == (Shard(0), Replicate())
+        assert got.to_local().tolist() == [0, 1]          # rank 0's block
+        spec = (None, "model")
+        m = tsh.place(torch.empty((4, 64), device="meta"),
+                      tsh.NamedSharding(big, spec))
+        assert m.shape == (4, 64) and m.to_local().shape == (4, 4)
+        assert m.to_local().is_meta
+        z = tsh.place(torch.empty((4, 64), device="meta"),
+                      tsh.NamedSharding(big, spec), zeros=True)
+        assert not z.to_local().is_meta and not z.to_local().any()
+    finally:
+        dist.destroy_process_group()
 
 
 def test_make_test_mesh_factors_like_the_reference(monkeypatch):
