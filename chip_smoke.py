@@ -145,7 +145,16 @@ them.  Phases, each failing the run on any error:
       any checkpoint) and 120, in a temporary directory: two restarts,
       the replayed steps' losses against the first pass's, the final
       loss below the first and the last 20 steps' mean below the first
-      20's;
+      20's; (u4) the driver's group path: ``python -m
+      repro_torch.launch.train`` (its ``main()``, in a process of its own
+      given torchrun's variables for a world of one, so that it starts a
+      one-rank NCCL group) trains (u2)'s llama3.2-3b at full width for 5
+      steps with a checkpoint after step 3 (32.1 GB) and a failure at
+      step 4, in a temporary directory: the group's size, one restart,
+      the replayed step's loss against the first pass's, every restored
+      leaf's bits (summed on the card) equal to the checkpointed
+      state's; the snapshot's, the write's and the restore's seconds and
+      GB/s and the peak memory, beside the card's name and power limit;
   (s) the step analysis, the dry-run and the analytic model: (s1) (d)'s
       wave (its roots, ``MultiSourceBFSRunner``) and one (h) root counted
       by ``launch.step_analysis.StepAnalysis`` on the card: FLOPs, bytes,
@@ -3144,10 +3153,182 @@ def train_example(dev) -> dict:
     return r
 
 
+# (u4) ``python -m repro_torch.launch.train``'s group path on the card: a
+# one-rank NCCL group that ``main()`` starts from torchrun's variables, (u2)'s
+# llama3.2-3b at full width; one checkpoint (after step 3: 3.2126e9 params x
+# (2 B + 4 B m + 4 B v), about 32.1 GB), a failure at step 4, one restore and
+# steps 3-4 run again
+GROUP_ARGS = ("--arch", FULL_RUN["arch"], "--steps", "5",
+              "--global-batch", str(FULL_RUN["global_batch"]),
+              "--seq-len", str(FULL_RUN["seq_len"]),
+              "--microbatches", str(FULL_RUN["microbatches"]),
+              "--ckpt-every", "3", "--inject-failures", "4")
+GROUP_TIMEOUT = 600      # seconds (u4)'s process may take
+
+# the process (u4) starts: ``launch.train.main`` with its checkpoints timed,
+# the checkpointed and the restored state's bits summed leaf by leaf on the
+# card, and the group it ran in recorded into argv[1]
+_GROUP_MAIN = r"""
+import json, sys, time
+import torch
+import torch.distributed as dist
+from repro_torch.ckpt import checkpoint as ckpt
+from repro_torch.launch import train as T
+
+rec = {"snapshot_s": [], "write_s": [], "write_bytes": [], "restore_s": [],
+       "saved": [], "restored": []}
+INTS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def sums(tree) -> dict:
+    # two int64 sums of each leaf's bits (plain and weighted by position)
+    out = {}
+    for key, layer, leaf in ckpt._items(tree):
+        b = leaf.detach().contiguous().view(-1).view(INTS[leaf.element_size()])
+        s1 = s2 = 0
+        for i, c in enumerate(b.split(1 << 26)):
+            c = c.to(torch.int64)
+            w = torch.arange(1, c.numel() + 1, device=c.device,
+                             dtype=torch.int64) + i * (1 << 26)
+            s1 += int(c.sum())
+            s2 += int((c * w).sum())
+        out[f"{key}#{layer}"] = [s1, s2]
+    return out
+
+
+def sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def timed(fn, what):
+    def run(*a, **k):
+        sync()
+        t0 = time.perf_counter()
+        r = fn(*a, **k)
+        sync()
+        rec[what].append(time.perf_counter() - t0)
+        return r
+    return run
+
+
+save, restore, write, train = (ckpt.AsyncCheckpointer.save, ckpt.restore,
+                               ckpt._write, T.train)
+
+
+def saving(self, step, tree, extra=None):
+    rec["saved"].append(sums(tree))
+    return save(self, step, tree, extra)
+
+
+def restoring(*a, **k):
+    tree, manifest = timed(restore, "restore_s")(*a, **k)
+    rec["restored"].append(sums(tree))
+    return tree, manifest
+
+
+def writing(ckpt_dir, step, arrays, dtypes, extra):
+    rec["write_bytes"].append(sum(a.nbytes for a in arrays.values()))
+    return timed(write, "write_s")(ckpt_dir, step, arrays, dtypes, extra)
+
+
+def training(run):
+    rec["world"], rec["backend"] = dist.get_world_size(), dist.get_backend()
+    out = train(run)
+    if torch.cuda.is_available():
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+ckpt.AsyncCheckpointer.save, ckpt.restore, ckpt._write = (saving, restoring,
+                                                          writing)
+ckpt.snapshot = timed(ckpt.snapshot, "snapshot_s")
+T.train = training
+T.main(sys.argv[2:])
+with open(sys.argv[1], "w") as f:
+    json.dump(rec, f)
+"""
+
+
+def free_port() -> int:
+    """A free TCP port on the loopback address."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def train_group(seed: int, card: str, args=GROUP_ARGS) -> dict:
+    """(u4) ``launch.train.main`` in a process of its own with torchrun's
+    variables for a world of one, so that it starts an NCCL group itself;
+    a checkpoint, a failure, a restore and a replay, in a temporary
+    directory removed afterwards: the group's size, the restart, the
+    replayed loss against the first pass, the restored leaves' bits
+    against the checkpointed state's, the checkpoint's seconds."""
+    env = dict(os.environ, WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+               LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()))
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rec_path = os.path.join(tmp, "record.json")
+        cmd = [sys.executable, "-c", _GROUP_MAIN, rec_path, *args,
+               "--seed", str(seed), "--ckpt-dir", os.path.join(tmp, "ckpt")]
+        proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            out, _ = proc.communicate(timeout=GROUP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise AssertionError(f"(u4) took over {GROUP_TIMEOUT} s")
+        if proc.returncode != 0:
+            raise AssertionError("(u4) failed:\n"
+                                 + "\n".join(out.strip().splitlines()[-20:]))
+        rec = json.loads(Path(rec_path).read_text())
+        ckpts = sorted(os.listdir(os.path.join(tmp, "ckpt")))
+        npz = [os.path.getsize(os.path.join(tmp, "ckpt", d, "arrays.npz"))
+               for d in ckpts]
+    wall = time.perf_counter() - t0
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    steps, result = lines[:-1], lines[-1]
+    first: dict = {}
+    replay_err, replayed = 0.0, 0
+    for r in steps:
+        if r["step"] in first:
+            replayed += 1
+            replay_err = max(replay_err, abs(r["loss"] - first[r["step"]]))
+        else:
+            first[r["step"]] = r["loss"]
+    losses = [r["loss"] for r in steps]
+    gb = npz[0] / 1e9 if npz else 0.0
+    r = dict(world=rec.get("world"), backend=rec.get("backend"),
+             result=result, losses=losses, replayed=replayed,
+             replay_err=replay_err, checkpoints=ckpts, npz_bytes=npz,
+             state_bytes=rec["write_bytes"], snapshot_s=rec["snapshot_s"],
+             write_s=rec["write_s"], restore_s=rec["restore_s"],
+             write_gb_s=[gb / x for x in rec["write_s"]],
+             restore_gb_s=[gb / x for x in rec["restore_s"]],
+             snapshot_gb_s=[b / 1e9 / x for b, x in zip(rec["write_bytes"],
+                                                        rec["snapshot_s"])],
+             restored_equal=(len(rec["saved"]) == len(rec["restored"]) == 1
+                             and rec["saved"][0] == rec["restored"][0]),
+             leaves=len(rec["saved"][0]) if rec["saved"] else 0,
+             peak_bytes=rec.get("peak_bytes"), wall_s=wall, card=card)
+    if not (r["world"] == 1 and result["restarts"] == 1
+            and result["steps"] == 5 and len(ckpts) == 1
+            and replayed >= 1 and replay_err <= REPLAY_LOSS
+            and r["restored_equal"] and np.isfinite(losses).all()):
+        raise AssertionError(f"(u4) {r}")
+    return r
+
+
 def phase_train(seed: int, dev, card: str) -> dict:
     """(u) LM training on the card: (u1) the ten reduced configs against
     the CPU port, (u2) llama3.2-3b at full width, (u3) checkpoint and
-    restart."""
+    restart, (u4) the driver's group path with a full-width checkpoint
+    and restore."""
     t_phase = time.perf_counter()
     u1 = {}
     for name in ARCH_NAMES:
@@ -3183,9 +3364,27 @@ def phase_train(seed: int, dev, card: str) -> dict:
         f"(limit {REPLAY_LOSS}); mean loss of the first / last "
         f"{LOSS_WINDOW} steps {u3['first_mean']:.5f} / "
         f"{u3['last_mean']:.5f}; {u3['wall_s']:.2f} s")
+    torch.cuda.empty_cache()         # (u4)'s process needs (u2)'s peak
+    u4 = train_group(seed, card)
+    log(f"(u4) python -m repro_torch.launch.train in a {u4['backend']} "
+        f"group of {u4['world']} that main() started, {FULL_RUN['arch']} "
+        f"full width, 5 steps, checkpoint every 3, failure at 4: "
+        f"{u4['result']}; losses {u4['losses']}; {u4['replayed']} replayed "
+        f"step(s) within {u4['replay_err']:.3g} of the first pass (limit "
+        f"{REPLAY_LOSS}); checkpoint {u4['checkpoints']}: "
+        f"{u4['npz_bytes'][0] / 1e9:.4f} GB written "
+        f"({u4['state_bytes'][0] / 1e9:.4f} GB of arrays); snapshot "
+        f"(device to host) {u4['snapshot_s'][0]:.3f} s "
+        f"({u4['snapshot_gb_s'][0]:.3f} GB/s), write "
+        f"{u4['write_s'][0]:.3f} s ({u4['write_gb_s'][0]:.3f} GB/s), "
+        f"restore {u4['restore_s'][0]:.3f} s "
+        f"({u4['restore_gb_s'][0]:.3f} GB/s); {u4['leaves']} restored "
+        f"leaves' bit sums equal to the checkpointed state's; peak "
+        f"{u4['peak_bytes'] / 1e9:.3f} GB allocated; the process "
+        f"{u4['wall_s']:.2f} s; {card}")
     phase_s = time.perf_counter() - t_phase
     log(f"(u) {phase_s:.2f}s")
-    return dict(card=card, phase_s=phase_s, u1=u1, u2=u2, u3=u3)
+    return dict(card=card, phase_s=phase_s, u1=u1, u2=u2, u3=u3, u4=u4)
 
 
 def profile_device(label: str, run, top: int = 12,

@@ -6,6 +6,13 @@ Uses the port's ``launch.train`` driver; it runs on the CUDA card, or on
 the CPU with ``--device cpu`` (slowly at the full sizes):
 
   PYTHONPATH=src python examples/train_lm_torch.py [--steps 60] [--device cpu]
+
+It trains on one rank.  The same driver trains across ranks from its
+own entry point, which starts the process group under torchrun (one
+process a rank; gloo on the CPU, NCCL on cards):
+
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.train --arch llama3.2-3b --reduced --device cpu
 """
 import argparse
 import json

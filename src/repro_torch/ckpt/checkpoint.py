@@ -19,6 +19,21 @@ as its uint16 bits with dtype ``"bfloat16"`` in the manifest.
 ``AsyncCheckpointer.save`` copies every leaf to the host before it
 returns (the train step updates the state in place afterwards), then
 writes on a background thread.
+
+Across ranks (a started process group) the file is the one a single
+rank writes, as the reference's checkpoints of a sharded state are:
+:func:`snapshot` gathers each ``DTensor`` leaf to its whole value, a
+collective every rank makes in the same leaf order, and copies it to
+rank 0's host at once, so the device holds one whole leaf at a time;
+only rank 0 keeps the host arrays and writes.  :func:`latest_step` is
+rank 0's answer broadcast to every rank, and :func:`restore` is elastic,
+as the reference's: every rank reads the whole ``arrays.npz`` and places
+its own block by the shardings of whatever mesh it restores on, so a
+checkpoint of any number of ranks (or of the reference) restores on any
+other.  The cost: rank 0 holds the whole state on its host once for each
+save (a segment's layers are copied straight into their stacked array,
+never held twice), and during a restore every rank holds the whole
+checkpoint on its host.
 """
 from __future__ import annotations
 
@@ -31,7 +46,9 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.transformer import reference_path
 
@@ -56,37 +73,81 @@ def _items(tree, prefix: tuple = ()):
         yield "/".join(prefix), None, tree
 
 
-def _host(leaf) -> np.ndarray:
-    """A host copy of a tensor or array; bf16 as its uint16 bits."""
+def _started() -> bool:
+    """True inside a started process group: every rank then takes part in
+    each collective of a save, a restore's step lookup and a wait."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def _rank() -> int:
+    return dist.get_rank() if _started() else 0
+
+
+def _barrier() -> None:
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
+
+
+def _whole(leaf):
+    """A leaf's whole value: a ``DTensor`` gathered from every rank (a
+    collective), a tensor detached, anything else as it is."""
+    if isinstance(leaf, DTensor):
+        return leaf.detach().full_tensor()
+    return leaf.detach() if torch.is_tensor(leaf) else leaf
+
+
+def _host_dtype(leaf) -> np.dtype:
+    """The dtype a leaf is stored in: bf16 as uint16 bits."""
     if torch.is_tensor(leaf):
-        t = leaf.detach().to("cpu", copy=True)
-        if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).numpy().view(np.uint16)
-        return t.numpy()
-    return np.array(leaf)
+        if leaf.dtype == torch.bfloat16:
+            return np.dtype(np.uint16)
+        return torch.empty(0, dtype=leaf.dtype).numpy().dtype
+    return np.asarray(leaf).dtype
 
 
 def _dtype_name(leaf) -> str:
-    if torch.is_tensor(leaf):
-        if leaf.dtype == torch.bfloat16:
-            return "bfloat16"
-        return str(torch.empty(0, dtype=leaf.dtype).numpy().dtype)
-    return str(np.asarray(leaf).dtype)
+    if torch.is_tensor(leaf) and leaf.dtype == torch.bfloat16:
+        return "bfloat16"
+    return str(_host_dtype(leaf))
+
+
+def _copy_into(out: np.ndarray, leaf) -> None:
+    """``out[...] = leaf`` for a tensor (bf16 as its bits) or an array."""
+    if not torch.is_tensor(leaf):
+        out[...] = leaf
+    elif leaf.dtype == torch.bfloat16:
+        torch.from_numpy(out.view(np.int16)).copy_(leaf.view(torch.int16))
+    else:
+        torch.from_numpy(out).copy_(leaf)
 
 
 def snapshot(tree) -> tuple[dict, dict]:
-    """(arrays, dtypes) keyed by the reference's paths: host copies, a
-    segment's layers stacked."""
-    layers: dict[str, dict[int, np.ndarray]] = {}
+    """(arrays, dtypes) keyed by the reference's paths: host copies of the
+    whole leaves, a segment's layers stacked.  In a started process group
+    every rank must call it (each ``DTensor`` leaf is gathered, leaf by
+    leaf); only rank 0 gets the arrays, the others an empty dict."""
+    items = list(_items(tree))
+    counts: dict[str, int] = {}
+    for key, layer, _ in items:
+        if layer is not None:
+            counts[key] = max(counts.get(key, 0), layer + 1)
+    keep = _rank() == 0
     arrays, dtypes = {}, {}
-    for key, layer, leaf in _items(tree):
+    for key, layer, leaf in items:
         dtypes[key] = _dtype_name(leaf)
+        whole = _whole(leaf)
+        if not keep:
+            continue
         if layer is None:
-            arrays[key] = _host(leaf)
-        else:
-            layers.setdefault(key, {})[layer] = _host(leaf)
-    for key, by_layer in layers.items():
-        arrays[key] = np.stack([by_layer[j] for j in sorted(by_layer)])
+            arrays[key] = np.empty(np.shape(whole), _host_dtype(whole))
+            _copy_into(arrays[key], whole)
+            continue
+        if key not in arrays:               # a segment's layers, stacked
+            arrays[key] = np.empty((counts[key], *np.shape(whole)),
+                                   _host_dtype(whole))
+        _copy_into(arrays[key][layer, ...], whole)
     return arrays, dtypes
 
 
@@ -110,12 +171,26 @@ def _write(ckpt_dir: str, step: int, arrays: dict, dtypes: dict,
 
 
 def save(ckpt_dir: str, step: int, tree, extra: dict | None = None) -> str:
+    """Write ``tree`` as the checkpoint of ``step``; returns its directory.
+    In a started process group every rank calls it, rank 0 writes, and
+    every rank returns once the checkpoint is in place."""
     arrays, dtypes = snapshot(tree)
-    return _write(ckpt_dir, step, arrays, dtypes, extra)
+    path = os.path.join(ckpt_dir, f"step-{step:08d}")
+    if _rank() == 0:
+        _write(ckpt_dir, step, arrays, dtypes, extra)
+    if _started():
+        _barrier()
+    return path
 
 
 class AsyncCheckpointer:
-    """Serialize+write on a background thread; at most one in flight."""
+    """Serialize+write on a background thread; at most one in flight.
+
+    In a started process group every rank makes each call: ``save``
+    gathers the snapshot on the calling thread of every rank before it
+    returns, rank 0 alone writes on its thread, and ``wait`` joins that
+    writer and then meets the other ranks at a barrier, so after it no
+    rank looks for a checkpoint that rank 0 has not renamed yet."""
 
     def __init__(self, ckpt_dir: str):
         self.ckpt_dir = ckpt_dir
@@ -125,10 +200,14 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if _started():
+            _barrier()
 
     def save(self, step: int, tree, extra: dict | None = None):
         self.wait()
         arrays, dtypes = snapshot(tree)        # device->host here
+        if _rank() != 0:
+            return
 
         def work():
             _write(self.ckpt_dir, step, arrays, dtypes, extra)
@@ -138,11 +217,18 @@ class AsyncCheckpointer:
 
 
 def latest_step(ckpt_dir: str) -> int | None:
-    if not os.path.isdir(ckpt_dir):
-        return None
-    steps = [int(d.split("-")[1]) for d in os.listdir(ckpt_dir)
-             if d.startswith("step-")]
-    return max(steps) if steps else None
+    """The newest step under ``ckpt_dir`` (None for none); in a started
+    process group rank 0's answer, broadcast to every rank."""
+    step = None
+    if _rank() == 0 and os.path.isdir(ckpt_dir):
+        steps = [int(d.split("-")[1]) for d in os.listdir(ckpt_dir)
+                 if d.startswith("step-")]
+        step = max(steps) if steps else None
+    if _started():
+        box = [step]
+        dist.broadcast_object_list(box, src=0)
+        step = box[0]
+    return step
 
 
 def _decode(arr: np.ndarray, want: str | None):
@@ -164,8 +250,9 @@ def _leaf(value, layer, like, sharding):
         if torch.is_tensor(value):          # bf16 into numpy: widen
             return value.float().numpy()
         return np.array(value)
+    # no host copy here: placing copies to the device, or cuts a block
     t = value if torch.is_tensor(value) else torch.from_numpy(
-        np.array(value))
+        np.asarray(value))
     if sharding is not None:
         from repro_torch.launch.shardings import place
         t = place(t, sharding)
@@ -217,7 +304,10 @@ def restore(ckpt_dir: str, step: int, like_tree, shardings=None):
     ``like_tree`` gives the structure, shapes and dtypes (e.g. the
     abstract train state on ``meta``; an ``LM`` comes back as a new
     ``LM``); ``shardings`` (the same structure, ``launch.shardings``'
-    ``NamedSharding``) places each tensor on its mesh's device."""
+    ``NamedSharding``) places each tensor on its mesh's device: on a mesh
+    of more than one rank a ``DTensor`` whose block this rank cuts from
+    the whole leaf it read (nothing moves between ranks), an ``LM``'s
+    parameters as ``distribute_params`` gives them."""
     path = os.path.join(ckpt_dir, f"step-{step:08d}")
     with open(os.path.join(path, "manifest.json")) as mf:
         manifest = json.load(mf)

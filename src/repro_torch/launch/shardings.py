@@ -203,8 +203,15 @@ def place(t: torch.Tensor, sharding: NamedSharding,
                                   shape=t.shape,
                                   stride=torch.empty(t.shape,
                                                      device="meta").stride())
-    return distribute_tensor(t.to(sharding.device), mesh, want,
-                             src_data_rank=None)
+    out = distribute_tensor(t.to(sharding.device), mesh, want,
+                            src_data_rank=None)
+    local = out.to_local()
+    if local.untyped_storage().nbytes() > local.nbytes:
+        # a block of dim 0 is a view of the whole tensor: keep only the block
+        out = DTensor.from_local(local.clone(), mesh, want, run_check=False,
+                                 shape=out.shape, stride=out.stride())
+        out.requires_grad_(t.requires_grad)
+    return out
 
 
 def place_tree(tree, shardings, zeros: bool = False):

@@ -171,9 +171,6 @@ def train_step_fn(cfg: ArchConfig, tcfg: TrainConfig, state: dict,
                                             tcfg.microbatches)
     if tcfg.grad_compress:
         from repro_torch.train import compress
-        if isinstance(loss, DTensor):
-            raise NotImplementedError(
-                "grad_compress runs on unsharded steps only")
         gen = compress.generator_for(int(state["opt"]["step"]),
                                      loss.device)
         q, s = compress.compress_tree(grads, gen)
