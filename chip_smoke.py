@@ -180,6 +180,20 @@ them.  Phases, each failing the run on any error:
       blocks on the CPU: the
       record complete, the peak under the card's memory, the argument
       bytes equal to the twin's, the counted FLOPs positive;
+  (v) the reference's three BFS examples, each at its own graph and
+      each holding its levels against the oracle itself: (v1)
+      ``examples/quickstart_torch.py`` on rmat18-8 in this process (the
+      local hybrid BFS, whose P3 is K4, and the distributed engine in a
+      one-rank NCCL group the example starts and destroys); (v2)
+      ``examples/distributed_bfs_torch.py`` on rmat18-16 under
+      ``torch.distributed.run --nproc-per-node 1`` (a process of its own,
+      its group apart from (r)'s; its launches printed by the process);
+      (v3) ``examples/serve_bfs_async_torch.py`` on small-12-8 in this
+      process, every served wave counted for K1; wall seconds, every
+      GTEPS figure the examples print, launches by kernel and the card's
+      name and power limit; the run fails if the quickstart launched no
+      K4, a served wave no K1, or the torchrun process exits non-zero.
+      About 60 s on the card, well under two minutes;
   (f) one JSON line of per-kernel results: K1 with its launches in (e)
       and times at --batch, K2 with its launches in (o)'s tiled call and
       (r1)'s wave and times at 256 roots, K3 in (i), K4 in (h), K5 in
@@ -197,8 +211,8 @@ them.  Phases, each failing the run on any error:
 
 Before the ``kernels`` line, one ``serving`` JSON line carries (p)'s and
 (q)'s numbers, one ``distributed`` JSON line (r)'s, one ``analysis``
-JSON line (s)'s, one ``lm`` JSON line (t)'s and one ``train`` JSON
-line (u)'s.  The last line
+JSON line (s)'s, one ``lm`` JSON line (t)'s, one ``train`` JSON
+line (u)'s and one ``examples`` JSON line (v)'s.  The last line
 of standard output is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -3108,11 +3122,14 @@ def train_full(seed: int, dev) -> dict:
     return r
 
 
-def example_module():
-    """``examples/train_lm_torch.py`` of this checkout, imported."""
+EXAMPLES = Path(__file__).resolve().parent / "examples"
+
+
+def example_module(name: str = "train_lm_torch"):
+    """``examples/<name>.py`` of this checkout, imported."""
     import importlib.util
-    path = Path(__file__).resolve().parent / "examples" / "train_lm_torch.py"
-    spec = importlib.util.spec_from_file_location("train_lm_torch", path)
+    spec = importlib.util.spec_from_file_location(name,
+                                                  EXAMPLES / f"{name}.py")
     example = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(example)
     return example
@@ -3387,6 +3404,157 @@ def phase_train(seed: int, dev, card: str) -> dict:
     return dict(card=card, phase_s=phase_s, u1=u1, u2=u2, u3=u3, u4=u4)
 
 
+# -- (v) the reference's three BFS examples on the card ---------------------
+
+EXAMPLE_GRAPHS = {"quickstart_torch": "rmat18-8",     # each example's own
+                  "distributed_bfs_torch": "rmat18-16",
+                  "serve_bfs_async_torch": "small-12-8"}
+EXAMPLE_TIMEOUT = 300    # seconds (v2)'s torchrun process may take
+K1 = "msbfs_propagate_planes"
+
+# the process each torchrun rank of (v2) runs: the example's main(), then
+# its kernels' launches as one JSON line (printed after the example's own)
+_EXAMPLE_MAIN = r"""
+import importlib.util, json, sys
+from repro_torch.kernels import (bitmap_update, csr_gather, flash_attention,
+                                 msbfs_propagate, pull_spmv)
+spec = importlib.util.spec_from_file_location("example", sys.argv[1])
+example = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(example)
+example.main(sys.argv[2:])
+print(json.dumps({"launches": {
+    k: v for m in (msbfs_propagate, bitmap_update, csr_gather, pull_spmv,
+                   flash_attention) for k, v in m.LAUNCHES.items()}}))
+"""
+
+
+@contextlib.contextmanager
+def k1_per_wave(waves: list):
+    """Append K1's launches in each ``MultiSourceBFSRunner.run_batch`` call
+    (one served wave) to ``waves``."""
+    run_batch = MultiSourceBFSRunner.run_batch
+
+    def counted(self, *a, **k):
+        before = kmod.LAUNCHES[K1]
+        try:
+            return run_batch(self, *a, **k)
+        finally:
+            waves.append(kmod.LAUNCHES[K1] - before)
+    MultiSourceBFSRunner.run_batch = counted
+    try:
+        yield
+    finally:
+        MultiSourceBFSRunner.run_batch = run_batch
+
+
+def example_quickstart(device=None) -> dict:
+    """(v1) ``examples/quickstart_torch.py`` on rmat18-8 in this process:
+    the local hybrid BFS (its P3 is K4) and the distributed engine in a
+    one-rank group the example starts, each held against the oracle by
+    the example itself."""
+    graph = EXAMPLE_GRAPHS["quickstart_torch"]
+    reset_launches()
+    t0 = time.perf_counter()
+    out = example_module("quickstart_torch").run(graph=graph, device=device)
+    wall = time.perf_counter() - t0
+    n = launches()
+    if n["bitmap_update"] <= 0:
+        raise AssertionError(f"(v1) the local BFS launched no K4: {n}")
+    return dict(graph=graph, wall_s=wall, launches=n,
+                gteps=dict(local=out["local"]["gteps"]),
+                model_gteps=dict(u280=out["model"]["u280_gteps"],
+                                 h100=out["model"]["h100_gteps"]),
+                out=out)
+
+
+def example_distributed(device=None) -> dict:
+    """(v2) ``examples/distributed_bfs_torch.py`` on rmat18-16 under
+    ``torch.distributed.run --nproc-per-node 1`` (a process of its own, so
+    its group is apart from this one's); it exits non-zero if a level
+    disagrees with the oracle."""
+    get_dataset(EXAMPLE_GRAPHS["distributed_bfs_torch"])   # cached for it
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        main_py = os.path.join(tmp, "example_main.py")
+        Path(main_py).write_text(_EXAMPLE_MAIN)
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc-per-node", "1", "--master-addr", "127.0.0.1",
+               "--master-port", str(free_port()), main_py,
+               str(EXAMPLES / "distributed_bfs_torch.py")]
+        if device is not None:
+            cmd += ["--device", str(device)]
+        proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            text, _ = proc.communicate(timeout=EXAMPLE_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise AssertionError(f"(v2) took over {EXAMPLE_TIMEOUT} s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError("(v2) failed:\n"
+                             + "\n".join(text.strip().splitlines()[-20:]))
+    lines = [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+    out, n = lines[-2], lines[-1]["launches"]
+    if out["devices"] != 1 or len(out["engines"]) != 3:
+        raise AssertionError(f"(v2) {out}")
+    return dict(graph=out["graph"], wall_s=wall, launches=n,
+                gteps={**{f"{e['dispatch']}/{e['crossbar']}": e["gteps"]
+                          for e in out["engines"]},
+                       "batch": out["batch"]["gteps"]},
+                out=out)
+
+
+def example_serving(device=None) -> dict:
+    """(v3) ``examples/serve_bfs_async_torch.py`` on small-12-8 in this
+    process: its three scenes, every served wave counted for K1, both
+    scenes' rows against the oracle."""
+    graph = EXAMPLE_GRAPHS["serve_bfs_async_torch"]
+    waves: list = []
+    reset_launches()
+    t0 = time.perf_counter()
+    with k1_per_wave(waves):
+        out = example_module("serve_bfs_async_torch").run(graph=graph,
+                                                          device=device)
+    wall = time.perf_counter() - t0
+    n = launches()
+    s1, s2, s3 = out["scene1"], out["scene2"], out["scene3"]
+    served = 1 + s2["stats"]["waves"] + s3["drained_waves"]
+    if not (s1["oracle_match"] and s2["oracle_match"]
+            and s1["batch"] == 5 and s3["rejected"]
+            and s3["drained_waves"] == 1 and len(waves) == served
+            and min(waves) > 0):
+        raise AssertionError(f"(v3) K1 by wave {waves}: {out}")
+    return dict(graph=graph, wall_s=wall, launches=n, k1_by_wave=waves,
+                gteps=dict(scene1=s1["teps"] / 1e9,
+                           scene2=s2["stats"]["aggregate_teps"] / 1e9),
+                out=out)
+
+
+def phase_examples(card: str, device=None) -> dict:
+    """(v) The three BFS examples at the reference's graphs: wall seconds,
+    every GTEPS figure they print, launches by kernel, the card."""
+    t_phase = time.perf_counter()
+    r = dict(quickstart=example_quickstart(device),
+             distributed=example_distributed(device),
+             serving=example_serving(device))
+    for name, x in r.items():
+        n = {k: v for k, v in x["launches"].items() if v}
+        log(f"(v) {name} on {x['graph']}: {x['wall_s']:.2f} s wall; GTEPS "
+            f"{x['gteps']}; launches {n}; {card}")
+    log(f"(v) quickstart's §V model: U280 32PC/64PE "
+        f"{r['quickstart']['model_gteps']['u280']:.4f}, one H100 at its "
+        f"HBM rate {r['quickstart']['model_gteps']['h100']:.1f} GTEPS "
+        "(models, not measured)")
+    phase_s = time.perf_counter() - t_phase
+    log(f"(v) took {phase_s:.2f}s")
+    return dict(card=card, phase_s=phase_s, **r)
+
+
 def profile_device(label: str, run, top: int = 12,
                    keep: tuple = ("propagate_", "whole_")) -> None:
     """Device time by kernel name over one call of ``run`` (warm, ending in
@@ -3595,6 +3763,8 @@ def main(argv=None) -> int:
     train = phase_train(args.seed, dev, card)
     # (s2) the dry-run's LM cells on the card (no kernel either)
     analysis["lm_cells"] = phase_lm_cells(card)
+    # (v) the reference's three BFS examples, each at its own graph
+    examples = phase_examples(card)
 
     # each kernel's launches on its own path
     counts = {
@@ -3641,6 +3811,7 @@ def main(argv=None) -> int:
     log(json.dumps({"analysis": analysis}))
     log(json.dumps({"lm": lm}))
     log(json.dumps({"train": train}))
+    log(json.dumps({"examples": examples}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,7 @@ _MODULES = {
 }
 
 ARCH_NAMES = list(_MODULES)
+SCALABFS_CONFIGS = CONFIGS          # the reference's name for Table II
 
 
 def get_config(name: str) -> ArchConfig:
@@ -31,5 +32,5 @@ def get_reduced_config(name: str) -> ArchConfig:
     return _MODULES[name].REDUCED
 
 
-__all__ = ["ARCH_NAMES", "CONFIGS", "ScalaBFSConfig", "get_config",
-           "get_reduced_config"]
+__all__ = ["ARCH_NAMES", "CONFIGS", "SCALABFS_CONFIGS", "ScalaBFSConfig",
+           "get_config", "get_reduced_config"]

@@ -13,7 +13,7 @@ from repro_torch.core.vertex_program import (BFS, CC, INTEGRITY_MODES,
                                              PROGRAMS, SSSP, SV_CHECK,
                                              BudgetOverflowError,
                                              ConnectedComponentsRunner,
-                                             IntegrityError,
+                                             IntegrityError, MSBFSResult,
                                              MultiSourceBFSRunner,
                                              SSSPRunner, VertexProgram,
                                              VertexProgramResult,
@@ -28,7 +28,8 @@ __all__ = [
     "validate_roots", "PartitionedGraph", "partition_graph", "PULL", "PUSH", "SchedulerConfig", "choose_mode",
     "choose_mode_host", "BFS", "CC", "SSSP", "PROGRAMS", "INTEGRITY_MODES",
     "SV_CHECK", "IntegrityError", "BudgetOverflowError",
-    "MultiSourceBFSRunner", "VertexProgram", "VertexProgramResult",
+    "MSBFSResult", "MultiSourceBFSRunner", "VertexProgram",
+    "VertexProgramResult",
     "VertexProgramRunner", "ConnectedComponentsRunner", "SSSPRunner",
     "component_labels", "get_program", "msbfs_reference", "vp_reference",
 ]

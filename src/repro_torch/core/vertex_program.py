@@ -481,6 +481,10 @@ class VertexProgramResult:
         return self.aggregate_teps / 1e9
 
 
+# The reference's older name: BFS results are the same record.
+MSBFSResult = VertexProgramResult
+
+
 class VertexProgramRunner:
     """Python-driven hybrid vertex-program engine over a batch of roots.
 

@@ -23,3 +23,8 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev
+
+
+def device_name(dev: torch.device) -> str:
+    """What a measurement was taken on: ``cpu`` or the card's name."""
+    return "cpu" if dev.type == "cpu" else torch.cuda.get_device_name(dev)

@@ -10,8 +10,10 @@ mesh's row-major order, which is the reference's flat shard index
 The process group is the caller's: start one with
 ``torch.distributed.init_process_group`` (NCCL for a CUDA mesh, gloo for
 a CPU mesh) before :func:`make_mesh`, which never starts one itself.
-:func:`make_production_mesh` is the one exception: the dry-run's 256- or
+:func:`make_production_mesh` is one exception: the dry-run's 256- or
 512-rank mesh over a *fake* process group, run by one process as rank 0.
+:func:`process_group` is the other: the group an example runs in, which
+it starts when none is (from torchrun's variables, else one rank).
 :func:`make_test_mesh` is the reference's small local mesh: over the
 group's ranks when one is started, else a :class:`LocalMesh` of this one
 process.
@@ -27,6 +29,8 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import math
+import os
+import tempfile
 
 import torch
 import torch.distributed as dist
@@ -35,6 +39,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from repro_torch.device import resolve_device
 
 _BACKEND = {"cuda": "nccl", "cpu": "gloo"}
+TORCHRUN_VARS = ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT")
 _AMBIENT = contextvars.ContextVar("ambient_mesh", default=None)
 
 
@@ -90,6 +95,29 @@ def make_mesh(axis_shapes, axis_names, device=None) -> DeviceMesh:
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
     return init_device_mesh(dev_type, axis_shapes,
                             mesh_dim_names=axis_names)
+
+
+@contextlib.contextmanager
+def process_group(device=None):
+    """The process group an example runs in: the one already started, used
+    as it is; else one started from torchrun's variables (``env://``);
+    else a one-rank group over a file store in a temporary directory.
+    NCCL for the card (``device=None``), gloo for ``device="cpu"``.  Only
+    a group started here is destroyed on leaving, also after an error."""
+    if dist.is_initialized():
+        yield
+        return
+    backend = _BACKEND[resolve_device(device).type]
+    with tempfile.TemporaryDirectory() as tmp:
+        if all(v in os.environ for v in TORCHRUN_VARS):
+            dist.init_process_group(backend, init_method="env://")
+        else:
+            dist.init_process_group(backend, init_method=f"file://{tmp}/store",
+                                    world_size=1, rank=0)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
 
 
 PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),

@@ -51,7 +51,8 @@ from repro_torch.device import resolve_device
 from repro_torch.ft.failures import (FailureInjector, InjectedFailure,
                                      StepTimer)
 from repro_torch.launch import shardings as sh
-from repro_torch.launch.mesh import make_test_mesh, mesh_device
+from repro_torch.launch.mesh import (TORCHRUN_VARS, make_test_mesh,
+                                     mesh_device)
 from repro_torch.models.config import ArchConfig
 from repro_torch.train.step import (TrainConfig, abstract_train_state,
                                     build_train_step, init_train_state,
@@ -189,9 +190,6 @@ def train(run: RunConfig) -> dict:
             "first_loss": losses[0] if losses else None,
             "restarts": restarts, "straggler_flags": timer.flags,
             "steps": step, "log": log}
-
-
-TORCHRUN_VARS = ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT")
 
 
 def main(argv=None):

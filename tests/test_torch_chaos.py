@@ -55,6 +55,12 @@ class FakeClock:
         self.t += float(dt)
 
 
+def chaos_roots(deg):
+    """The 128 requests of ``test_card_chaos_schedule``."""
+    rng = np.random.default_rng(1)
+    return rng.choice(np.flatnonzero(deg > 0), 128).astype(np.int64)
+
+
 @pytest.fixture(scope="module")
 def served():
     """Both packages' runners over one graph, the request stream, a
@@ -85,11 +91,18 @@ def served():
     port_pkg = SimpleNamespace(name="port", ft=tft, dyn=tdyn,
                                runner=lambda **kw: TMS(tg, **kw),
                                knob="use_kernels", breaker="break_kernels")
-    # warm both engines on every wave so no budget is first met mid-test
+    # warm both engines on every wave so no budget is first met mid-test:
+    # the packed runner with and without the witness check and the
+    # bool-plane rung a demotion lands on, over these roots and over
+    # test_card_chaos_schedule's; the reference compiles each (program,
+    # budget, check) step on its first wave, which past its 0.5 s wave
+    # deadline would count as a second timeout
     for pkg in (ref_pkg, port_pkg):
-        r = pkg.runner()
-        for lo in range(0, REQUESTS, B):
-            r.run(np.resize(roots[lo:lo + B], B))
+        for kw in ({}, {"integrity": "witness"}, {"packed": False}):
+            r = pkg.runner(**kw)
+            for wave_roots in (roots, chaos_roots(deg)):
+                for lo in range(0, len(wave_roots), B):
+                    r.run(np.resize(wave_roots[lo:lo + B], B))
     return dict(csr=csr, deg=deg, roots=roots, poison=poison, ref=ref,
                 pkgs=(ref_pkg, port_pkg))
 
@@ -366,8 +379,7 @@ def test_card_chaos_schedule(served):
     requests in five waves, every one resolved with a row or a typed
     error, neither flip served."""
     csr, deg = served["csr"], served["deg"]
-    rng = np.random.default_rng(1)
-    roots = rng.choice(np.flatnonzero(deg > 0), 128).astype(np.int64)
+    roots = chaos_roots(deg)
     bad = N + 5
     far = _far_vertex(csr, int(roots[96]))
     waves = [(0, 32), (32, 64), (64, 96), (96, 112), (112, 128)]
