@@ -8,9 +8,12 @@ single-source pipeline: ``bfs_reference`` (dense edge-parallel steps) and
 ``BFSRunner``, the paper's per-root GTEPS engine, whose push and pull
 steps end in the fused P3 update (kernel K4 under ``use_kernels``).
 
-None of the device functions here synchronises with the host: sizes come
-from Python ints (caps and budgets), never from tensor values, so the
-runners keep their one-fetch-per-level protocol.
+No device function here reads a tensor's value on the host: sizes come
+from Python ints (caps and budgets), so the runners keep their
+one-fetch-per-level protocol.  Two calls still wait for the stream, as
+a host-to-device copy of a Python scalar does: ``expand_edges``'
+``torch.tensor(-1, device=...)`` and ``bitmap.from_indices_dense``'s
+``dense[...] = True`` (the ``syncs_per_level`` metrics count them).
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from repro_torch.core import bitmap
 from repro_torch.core.scheduler import PUSH, SchedulerConfig, choose_mode_host
 from repro_torch.device import resolve_device
 from repro_torch.graph.csr import CSRGraph, edge_sources
+from repro_torch.trace import span
 
 INF = 1 << 30
 
@@ -248,31 +252,44 @@ def push_step(g: LocalGraph, frontier_w, visited_w, level, lvl: int,
     visited, level, statvec); the driver fetches only ``statvec``.
     Inputs are never written; ``out`` (K4's buffers, see
     ``kernels.bitmap_update``) must not hold them."""
-    fmask = bitmap.unpack(frontier_w, g.n_pad)
-    active, _ = compact_indices(fmask, g.n_pad)
-    _, nbr, valid, total = expand_edges(active, g.out_indptr, g.out_indices,
-                                        budget)
-    unvisited = ~bitmap.test_bits(visited_w, nbr.clamp(min=0)) & valid
-    cand = bitmap.from_indices_dense(torch.where(unvisited, nbr, -1), g.n_pad)
-    new, vis2, count = _p3_update(cand, visited_w, use_kernels, out)
-    level2 = torch.where(bitmap.unpack(new, g.n_pad), lvl + 1, level)
-    return new, vis2, level2, _statvec(g, new, vis2, total, total > budget,
-                                       count)
+    with span("expand"):
+        fmask = bitmap.unpack(frontier_w, g.n_pad)
+        active, _ = compact_indices(fmask, g.n_pad)
+        _, nbr, valid, total = expand_edges(active, g.out_indptr,
+                                            g.out_indices, budget)
+    with span("propagate"):
+        unvisited = ~bitmap.test_bits(visited_w, nbr.clamp(min=0)) & valid
+        cand = bitmap.from_indices_dense(torch.where(unvisited, nbr, -1),
+                                         g.n_pad)
+    return _commit(g, cand, visited_w, level, lvl, total, budget,
+                   use_kernels, out)
 
 
 def pull_step(g: LocalGraph, frontier_w, visited_w, level, lvl: int,
               budget: int, use_kernels: bool = False, out=None):
     """Pull iteration: expand in-lists of unvisited, test frontier bit."""
-    umask = ~bitmap.unpack(visited_w, g.n_pad)
-    unvisited, _ = compact_indices(umask, g.n_pad)
-    child, parent, valid, total = expand_edges(unvisited, g.in_indptr,
-                                               g.in_indices, budget)
-    hit = bitmap.test_bits(frontier_w, parent.clamp(min=0)) & valid
-    cand = bitmap.from_indices_dense(torch.where(hit, child, -1), g.n_pad)
-    new, vis2, count = _p3_update(cand, visited_w, use_kernels, out)
-    level2 = torch.where(bitmap.unpack(new, g.n_pad), lvl + 1, level)
-    return new, vis2, level2, _statvec(g, new, vis2, total, total > budget,
-                                       count)
+    with span("expand"):
+        umask = ~bitmap.unpack(visited_w, g.n_pad)
+        unvisited, _ = compact_indices(umask, g.n_pad)
+        child, parent, valid, total = expand_edges(unvisited, g.in_indptr,
+                                                   g.in_indices, budget)
+    with span("propagate"):
+        hit = bitmap.test_bits(frontier_w, parent.clamp(min=0)) & valid
+        cand = bitmap.from_indices_dense(torch.where(hit, child, -1),
+                                         g.n_pad)
+    return _commit(g, cand, visited_w, level, lvl, total, budget,
+                   use_kernels, out)
+
+
+def _commit(g: LocalGraph, cand, visited_w, level, lvl: int, total,
+            budget: int, use_kernels: bool, out):
+    """Both steps' tail: P3 and the level update, then the statvec."""
+    with span("commit"):
+        new, vis2, count = _p3_update(cand, visited_w, use_kernels, out)
+        level2 = torch.where(bitmap.unpack(new, g.n_pad), lvl + 1, level)
+    with span("statvec"):
+        sv = _statvec(g, new, vis2, total, total > budget, count)
+    return new, vis2, level2, sv
 
 
 @dataclasses.dataclass
@@ -301,7 +318,10 @@ class BFSRunner:
     device->host transfer per level, one per overflow retry, plus one
     for the initial frontier and one final level-array readback.
     ``use_kernels`` takes the reference's ``use_pallas`` place (see
-    :func:`resolve_use_kernels`).
+    :func:`resolve_use_kernels`).  After a run ``last_level_seconds``
+    holds the host time of each level (step + statvec fetch, retries
+    included; the fetch synchronises, so it covers the device work).
+    Each phase is a ``repro_torch.trace`` span.
     """
 
     def __init__(self, g: LocalGraph, sched: SchedulerConfig | None = None,
@@ -311,6 +331,7 @@ class BFSRunner:
         self.init_budget = init_budget
         self.use_kernels = resolve_use_kernels(g, use_kernels)
         self._transfers = 0
+        self.last_level_seconds: list[float] = []
         # fetched once here so the GTEPS accounting after each run is not
         # an extra (uncounted) device->host transfer
         self._out_deg_np = g.out_deg.cpu().numpy()[: g.n]
@@ -341,10 +362,12 @@ class BFSRunner:
         g = self.g
         root = int(validate_roots(np.asarray([root]), g.n)[0])
         self._transfers = 0
+        level_s: list[float] = []
         t0 = time.perf_counter()
-        frontier, visited, level, statvec = _sbfs_init(
-            g, torch.tensor([root], device=g.device))
-        sv = self._fetch(statvec)
+        with span("init"):
+            frontier, visited, level, statvec = _sbfs_init(
+                g, torch.tensor([root], device=g.device))
+            sv = self._fetch(statvec)
         mode = PUSH
         lvl = 0
         inspected = 0
@@ -355,26 +378,33 @@ class BFSRunner:
         budget = min(self.init_budget,
                      max(g.out_indices.shape[0], g.in_indices.shape[0]) + 1)
         while int(sv[SV_NF]) > 0:
-            mode = choose_mode_host(self.sched, mode, int(sv[SV_NF]),
-                                    int(sv[SV_MF]), int(sv[SV_MU]), g.n,
-                                    int(sv[SV_NU]))
-            step = push_step if mode == PUSH else pull_step
-            need = int(sv[SV_MF]) if mode == PUSH else int(sv[SV_MU])
-            cap = (g.out_indices if mode == PUSH else g.in_indices).shape[0]
-            while budget < min(need, cap + 1):
-                budget *= 2
-            # retry from the PRE-step state: steps never write their inputs
-            state0 = (frontier, visited, level)
-            out = self._p3_out[lvl % 2] if self._p3_out else None
-            frontier, visited, level, statvec = step(
-                g, *state0, lvl, budget, self.use_kernels, out)
-            sv = self._fetch(statvec)
-            while bool(sv[SV_OVERFLOW]):      # HBM-reader overflow: deepen
-                overflow_retries += 1
-                budget *= 2
-                frontier, visited, level, statvec = step(
-                    g, *state0, lvl, budget, self.use_kernels, out)
-                sv = self._fetch(statvec)
+            t_lvl = time.perf_counter()
+            with span("level", lvl):
+                mode = choose_mode_host(self.sched, mode, int(sv[SV_NF]),
+                                        int(sv[SV_MF]), int(sv[SV_MU]), g.n,
+                                        int(sv[SV_NU]))
+                step = push_step if mode == PUSH else pull_step
+                need = int(sv[SV_MF]) if mode == PUSH else int(sv[SV_MU])
+                cap = (g.out_indices if mode == PUSH
+                       else g.in_indices).shape[0]
+                while budget < min(need, cap + 1):
+                    budget *= 2
+                # retry from the PRE-step state: steps never write inputs
+                state0 = (frontier, visited, level)
+                out = self._p3_out[lvl % 2] if self._p3_out else None
+                with span("step"):
+                    frontier, visited, level, statvec = step(
+                        g, *state0, lvl, budget, self.use_kernels, out)
+                with span("statvec_fetch"):
+                    sv = self._fetch(statvec)
+                while bool(sv[SV_OVERFLOW]):  # HBM-reader overflow: deepen
+                    overflow_retries += 1
+                    budget *= 2
+                    with span("retry"):
+                        frontier, visited, level, statvec = step(
+                            g, *state0, lvl, budget, self.use_kernels, out)
+                        sv = self._fetch(statvec)
+            level_s.append(time.perf_counter() - t_lvl)
             lvl += 1
             inspected += int(sv[SV_TOTAL])
             if mode == PUSH:
@@ -384,10 +414,13 @@ class BFSRunner:
         if g.device.type == "cuda":
             torch.cuda.synchronize(g.device)
         dt = time.perf_counter() - t0
-        level_np = self._fetch(level[: g.n])
+        self.last_level_seconds = level_s
+        with span("readback"):
+            level_np = self._fetch(level[: g.n])
         # GTEPS metric per paper §VI-A: sum of outgoing neighbor-list
         # lengths of all visited vertices; each edge counted once.
-        traversed = count_traversed_edges(self._out_deg_np, level_np)
+        with span("count"):
+            traversed = count_traversed_edges(self._out_deg_np, level_np)
         return BFSResult(level=level_np, iterations=lvl,
                          edges_inspected=inspected, push_iters=push_iters,
                          pull_iters=pull_iters, traversed_edges=traversed,

@@ -42,6 +42,7 @@ from repro_torch.core.bfs_local import (INF, SV_COUNT, SV_MF, SV_MU, SV_NF,
                                         resolve_use_kernels, validate_roots)
 from repro_torch.core.scheduler import (PUSH, SchedulerConfig, choose_mode,
                                         choose_mode_host)
+from repro_torch.trace import span
 
 
 # ---------------------------------------------------------------------------
@@ -201,10 +202,12 @@ def _vp_statvec(g: LocalGraph, new_w, seen_w, total, overflow, nb: int,
 def _vp_commit(g: LocalGraph, program: VertexProgram, new_w, seen_w, value,
                lvl, total, overflow, chk=None):
     """Per-level apply (the pipeline's single unpack point) + fused stats."""
-    new_mask = bitmap.unpack_rows(new_w, value.shape[1])
-    value2 = program.commit(value, new_mask, lvl)
-    return value2, _vp_statvec(g, new_w, seen_w, total, overflow,
-                               value.shape[1], chk)
+    with span("commit"):
+        new_mask = bitmap.unpack_rows(new_w, value.shape[1])
+        value2 = program.commit(value, new_mask, lvl)
+    with span("statvec"):
+        return value2, _vp_statvec(g, new_w, seen_w, total, overflow,
+                                   value.shape[1], chk)
 
 
 def _propagate_edges(g: LocalGraph, frontier_w, seen_w, src, tgt, valid,
@@ -379,10 +382,12 @@ def vp_push_step(g: LocalGraph, frontier_w, seen_w, value, lvl,
     the step's INPUT state (it indicts the words the step consumed)."""
     chk = _integrity_chk(frontier_w, seen_w, value.shape[1]) if check \
         else None
-    src, nbr, valid, total = push_edges(g, frontier_w, budget)
-    new, seen2 = _propagate_edges(g, frontier_w, seen_w, src, nbr, valid,
-                                  use_kernels, program.combine, tile_rows,
-                                  total)
+    with span("expand"):
+        src, nbr, valid, total = push_edges(g, frontier_w, budget)
+    with span("propagate"):
+        new, seen2 = _propagate_edges(g, frontier_w, seen_w, src, nbr, valid,
+                                      use_kernels, program.combine,
+                                      tile_rows, total)
     value2, statvec = _vp_commit(g, program, new, seen2, value, lvl, total,
                                  total > budget, chk)
     return new, seen2, value2, statvec
@@ -401,19 +406,23 @@ def vp_pull_step(g: LocalGraph, frontier_w, seen_w, value, lvl,
     nb = value.shape[1]
     chk = _integrity_chk(frontier_w, seen_w, nb) if check else None
     if use_kernels:
-        parent, child, valid, total = pull_edges(g, seen_w, nb, budget)
-        new, seen2 = _propagate_edges(g, frontier_w, seen_w, parent, child,
-                                      valid, True, program.combine,
-                                      tile_rows, total)
+        with span("expand"):
+            parent, child, valid, total = pull_edges(g, seen_w, nb, budget)
+        with span("propagate"):
+            new, seen2 = _propagate_edges(g, frontier_w, seen_w, parent,
+                                          child, valid, True,
+                                          program.combine, tile_rows, total)
         overflow = total > budget
     elif budget:
-        new, seen2, total = _propagate_pull_sparse(g, frontier_w, seen_w, nb,
-                                                   budget)
+        with span("propagate"):     # the expansion is fused into it
+            new, seen2, total = _propagate_pull_sparse(g, frontier_w, seen_w,
+                                                       nb, budget)
         overflow = total > budget
     else:
-        cand = _propagate_pull_scan(g, frontier_w)
-        new = cand & ~seen_w
-        seen2 = seen_w | new
+        with span("propagate"):
+            cand = _propagate_pull_scan(g, frontier_w)
+            new = cand & ~seen_w
+            seen2 = seen_w | new
         total = int(g.in_indices.shape[0])
         overflow = 0
     value2, statvec = _vp_commit(g, program, new, seen2, value, lvl, total,
@@ -495,7 +504,8 @@ class VertexProgramRunner:
 
     After a run, ``last_stats`` holds the reference's counters and
     ``last_level_seconds`` the host time of each level (step + statvec
-    fetch; the fetch synchronises, so it covers the device work).
+    fetch; the fetch synchronises, so it covers the device work).  Each
+    phase of the packed loop is a ``repro_torch.trace`` span.
 
     ``integrity`` (see ``INTEGRITY_MODES``) may be changed between waves;
     ``witness_k``/``witness_budget``/``integrity_seed`` shape the witness
@@ -650,9 +660,10 @@ class VertexProgramRunner:
         pcs: list[int] = []         # per-level discovery popcounts
         level_s: list[float] = []
         t0 = time.perf_counter()
-        frontier, seen, value, statvec = vp_init_state(
-            g, torch.from_numpy(roots).to(g.device), program, check=check)
-        sv = self._fetch(statvec)
+        with span("init"):
+            frontier, seen, value, statvec = vp_init_state(
+                g, torch.from_numpy(roots).to(g.device), program, check=check)
+            sv = self._fetch(statvec)
         if check:
             self._guard_sv(sv, 0, b, 0)
         pcs.append(int(sv[SV_COUNT]))
@@ -667,50 +678,55 @@ class VertexProgramRunner:
                      max(g.out_indices.shape[0], g.in_indices.shape[0]) + 1)
         while not program.done(sv):
             t_lvl = time.perf_counter()
-            mode = choose_mode_host(self.sched, mode, int(sv[SV_NF]),
-                                    int(sv[SV_MF]), int(sv[SV_MU]), g.n,
-                                    int(sv[SV_NU]))
-            # the plain dense pull scans the whole CSC stream: only push
-            # and the budgeted kernel/sparse pulls need a budget
-            budgeted = mode == PUSH or self.use_kernels
-            step_budget = 0
-            if budgeted:
-                need = int(sv[SV_MF]) if mode == PUSH else int(sv[SV_MU])
-                cap = (g.out_indices if mode == PUSH
-                       else g.in_indices).shape[0]
-                while budget < min(need, cap + 1):
-                    budget *= 2
-                step_budget = budget
-            elif self.sparse_pull:
-                step_budget = self._pull_budget(int(sv[SV_MU]))
-            step = vp_push_step if mode == PUSH else vp_pull_step
-            if corrupt is not None and lvl == int(corrupt[0]):
-                # chaos hook: flip one frontier plane bit, exact-once
-                frontier = _xor_plane_bit(frontier, corrupt[1], corrupt[2])
-                corrupt = None
-            # retry from the PRE-step state: steps never write their inputs
-            state0 = (frontier, seen, value)
-            frontier, seen, value, statvec = step(
-                g, *state0, lvl, program, step_budget, self.use_kernels,
-                self.tile_rows, check)
-            sv = self._fetch(statvec)
-            if check:
-                self._guard_sv(sv, lvl, b, sum(pcs))
-            while step_budget and bool(sv[SV_OVERFLOW]):
-                overflow_retries += 1
-                if (self.max_overflow_retries is not None
-                        and overflow_retries > self.max_overflow_retries):
-                    raise BudgetOverflowError(step_budget, int(sv[SV_MF]),
-                                              overflow_retries)
-                step_budget *= 2       # HBM-reader queue overflow: deepen
+            with span("level", lvl):
+                mode = choose_mode_host(self.sched, mode, int(sv[SV_NF]),
+                                        int(sv[SV_MF]), int(sv[SV_MU]), g.n,
+                                        int(sv[SV_NU]))
+                # the plain dense pull scans the whole CSC stream: only
+                # push and the budgeted kernel/sparse pulls need a budget
+                budgeted = mode == PUSH or self.use_kernels
+                step_budget = 0
                 if budgeted:
-                    budget = step_budget
-                frontier, seen, value, statvec = step(
-                    g, *state0, lvl, program, step_budget, self.use_kernels,
-                    self.tile_rows, check)
-                sv = self._fetch(statvec)
+                    need = int(sv[SV_MF]) if mode == PUSH else int(sv[SV_MU])
+                    cap = (g.out_indices if mode == PUSH
+                           else g.in_indices).shape[0]
+                    while budget < min(need, cap + 1):
+                        budget *= 2
+                    step_budget = budget
+                elif self.sparse_pull:
+                    step_budget = self._pull_budget(int(sv[SV_MU]))
+                step = vp_push_step if mode == PUSH else vp_pull_step
+                if corrupt is not None and lvl == int(corrupt[0]):
+                    # chaos hook: flip one frontier plane bit, exact-once
+                    frontier = _xor_plane_bit(frontier, corrupt[1],
+                                              corrupt[2])
+                    corrupt = None
+                # retry from the PRE-step state: steps never write inputs
+                state0 = (frontier, seen, value)
+                with span("step"):
+                    frontier, seen, value, statvec = step(
+                        g, *state0, lvl, program, step_budget,
+                        self.use_kernels, self.tile_rows, check)
+                with span("statvec_fetch"):
+                    sv = self._fetch(statvec)
                 if check:
                     self._guard_sv(sv, lvl, b, sum(pcs))
+                while step_budget and bool(sv[SV_OVERFLOW]):
+                    overflow_retries += 1
+                    if (self.max_overflow_retries is not None
+                            and overflow_retries > self.max_overflow_retries):
+                        raise BudgetOverflowError(
+                            step_budget, int(sv[SV_MF]), overflow_retries)
+                    step_budget *= 2   # HBM-reader queue overflow: deepen
+                    if budgeted:
+                        budget = step_budget
+                    with span("retry"):
+                        frontier, seen, value, statvec = step(
+                            g, *state0, lvl, program, step_budget,
+                            self.use_kernels, self.tile_rows, check)
+                        sv = self._fetch(statvec)
+                    if check:
+                        self._guard_sv(sv, lvl, b, sum(pcs))
             pcs.append(int(sv[SV_COUNT]))
             lvl += 1
             inspected += int(sv[SV_TOTAL])
@@ -725,24 +741,27 @@ class VertexProgramRunner:
         # is safe) and, with the witness on, its int32[2] verdict come back
         # in ONE transfer, so host_transfers stays iterations + 2; the rows
         # are transposed on the device, so each arrives contiguous
-        final = [value[: g.n].T, _plane_traversed(g, value)]
-        if witness:
-            k = min(self.witness_k, g.n)
-            sample = torch.from_numpy(
-                self._witness_rng.integers(0, g.n, size=k)).to(g.device)
-            final.append(_witness_check(g, value, sample,
-                                        self.witness_budget))
-        rows, trav, *wit = self._fetch_many(*final)  # rows [B, n]
+        with span("readback"):
+            final = [value[: g.n].T, _plane_traversed(g, value)]
+            if witness:
+                k = min(self.witness_k, g.n)
+                sample = torch.from_numpy(
+                    self._witness_rng.integers(0, g.n, size=k)).to(g.device)
+                final.append(_witness_check(g, value, sample,
+                                            self.witness_budget))
+            rows, trav, *wit = self._fetch_many(*final)  # rows [B, n]
         wit = wit[0] if wit else None
-        if check:
-            self._guard_rows(rows, roots, lvl)
-            if wit is not None and not int(wit[1]) and int(wit[0]):
-                raise IntegrityError(
-                    f"witness audit failed: {int(wit[0])} sampled "
-                    "(vertex, plane) discoveries have no in-neighbour at "
-                    "value - 1")
-        res = self._result(rows, b, lvl, inspected, push_iters, pull_iters,
-                           dt, overflow_retries, budget, trav)
+        with span("count"):
+            if check:
+                self._guard_rows(rows, roots, lvl)
+                if wit is not None and not int(wit[1]) and int(wit[0]):
+                    raise IntegrityError(
+                        f"witness audit failed: {int(wit[0])} sampled "
+                        "(vertex, plane) discoveries have no in-neighbour "
+                        "at value - 1")
+            res = self._result(rows, b, lvl, inspected, push_iters,
+                               pull_iters, dt, overflow_retries, budget,
+                               trav)
         self.last_stats["discovery_popcounts"] = pcs
         if check:
             self.last_stats["integrity"] = dict(

@@ -30,7 +30,10 @@ the ~21x batch-32 win.  This module closes that gap (the ROADMAP's
   book stats) — connected by bounded queues, so the engine never idles on
   host-side wave assembly or result bookkeeping under a saturating
   stream.  Engine idle between consecutive waves is measured and reported
-  (``stats()["engine_idle_seconds"]``).
+  (``stats()["engine_idle_seconds"]``).  Each stage's work on a wave is a
+  ``repro_torch.trace`` span (``batcher.cut`` / ``.execute`` /
+  ``.finish``, args: the wave's cut sequence number), so a profiler that
+  records every thread shows the three threads' share of each wave.
 * Time is injected (``clock=``): with the default ``time.monotonic`` a
   daemon worker thread drives waves; with a fake clock the scheduler is a
   deterministic, single-threaded state machine driven by ``pump()`` /
@@ -65,6 +68,7 @@ engines behind one submit surface see ``launch.pool``.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import queue
 import threading
 import time
@@ -76,6 +80,7 @@ from repro_torch.core import (bitmap, count_traversed_edges,
                               engine_num_vertices, validate_roots)
 from repro_torch.ft.supervisor import (DETERMINISTIC, EngineSupervisor,
                                        classify_fault)
+from repro_torch.trace import span
 
 
 class QueueFull(RuntimeError):
@@ -122,6 +127,11 @@ class WaveStats:
     timeouts: int = 0
     quarantined: list[int] = dataclasses.field(default_factory=list)
     demotions: list[str] = dataclasses.field(default_factory=list)
+    # injected-clock times of the wave's engine entry and of the engine's
+    # return (or raise): t_dispatch - t_start is the wait behind earlier
+    # waves, t_engine_done - t_dispatch the engine call
+    t_dispatch: float | None = None
+    t_engine_done: float | None = None
 
     @property
     def aggregate_teps(self) -> float | None:
@@ -201,6 +211,7 @@ class _Prepared:
     slots: np.ndarray           # padded plane slots handed to the engine
     b: int                      # real request count
     ws: WaveStats
+    seq: int                    # cut order: the stage spans' args
 
 
 @dataclasses.dataclass
@@ -314,6 +325,7 @@ class DynamicBatcher:
         self._traversed = 0
         self._inflight = 0                # cut but not yet finished
         self._seq = 0
+        self._cut_seq = itertools.count()  # waves in the order they are cut
         self._pending: deque[BFSFuture] = deque()
         self._n_slo_pending = 0           # pending with deadline/priority
         self._cond = threading.Condition()
@@ -657,23 +669,26 @@ class DynamicBatcher:
     def _prepare(self, futures: list[BFSFuture],
                  preempted: bool = False) -> _Prepared:
         """Cutter stage: validate + pad the wave, before the engine."""
-        roots = np.asarray([f.root for f in futures], np.int64)
-        b = len(futures)
-        if self.supervisor is not None:
-            # the supervisor pads internally (it may bisect the wave)
-            slots = roots
-            n_slots = (bitmap.num_words(b) * bitmap.WORD_BITS
-                       if self.supervisor.pad_to_plane else b)
-        else:
-            slots = roots
-            if self.pad_to_plane:
-                slots, b = bitmap.pad_plane_slots(roots)
-            n_slots = int(slots.size)
-        ws = WaveStats(wave_id=-1, batch=b, n_slots=n_slots,
-                       t_start=self.clock(), seconds=0.0, iterations=0,
-                       edges_inspected=0, push_iters=0, pull_iters=0,
-                       traversed_edges=None, preempted=preempted)
-        return _Prepared(futures=futures, slots=slots, b=b, ws=ws)
+        seq = next(self._cut_seq)
+        with span("batcher.cut", seq):
+            roots = np.asarray([f.root for f in futures], np.int64)
+            b = len(futures)
+            if self.supervisor is not None:
+                # the supervisor pads internally (it may bisect the wave)
+                slots = roots
+                n_slots = (bitmap.num_words(b) * bitmap.WORD_BITS
+                           if self.supervisor.pad_to_plane else b)
+            else:
+                slots = roots
+                if self.pad_to_plane:
+                    slots, b = bitmap.pad_plane_slots(roots)
+                n_slots = int(slots.size)
+            ws = WaveStats(wave_id=-1, batch=b, n_slots=n_slots,
+                           t_start=self.clock(), seconds=0.0, iterations=0,
+                           edges_inspected=0, push_iters=0, pull_iters=0,
+                           traversed_edges=None, preempted=preempted)
+            return _Prepared(futures=futures, slots=slots, b=b, ws=ws,
+                             seq=seq)
 
     def _wave_deadline(self, futures: list[BFSFuture]) -> float | None:
         """Tightest remaining request deadline, for the wave watchdog."""
@@ -689,19 +704,26 @@ class DynamicBatcher:
         wave's engine return and this wave's engine entry is time the
         engine spent waiting on the host.
         """
+        with span("batcher.execute", prep.seq):
+            return self._execute_wave(prep)
+
+    def _execute_wave(self, prep: _Prepared) -> list[_Executed]:
         t0 = time.perf_counter()
         with self._cond:
             if self._last_exec_end is not None:
                 self._idle_seconds += max(t0 - self._last_exec_end, 0.0)
         ws = prep.ws
+        ws.t_dispatch = self.clock()
         try:
             if self.supervisor is not None:
                 wave = self.supervisor.run_wave(
                     prep.slots, deadline=self._wave_deadline(prep.futures))
+                ws.t_engine_done = self.clock()
                 out = [_Executed(prep=prep, wave=wave)]
             else:
                 # BFSEngine protocol: run_batch + last_stats, no sniffing
                 levels = np.asarray(self.engine.run_batch(prep.slots))
+                ws.t_engine_done = self.clock()
                 ws.seconds = time.perf_counter() - t0
                 st = dict(getattr(self.engine, "last_stats", {}))
                 ws.iterations = int(st.get("iterations", 0))
@@ -715,6 +737,8 @@ class DynamicBatcher:
                         np.sum(np.asarray(tpp[: prep.b], np.int64)))
                 out = [_Executed(prep=prep, levels=levels)]
         except Exception as exc:       # resolve, don't kill the worker
+            if ws.t_engine_done is None:
+                ws.t_engine_done = self.clock()
             ws.seconds = time.perf_counter() - t0
             out = [_Executed(prep=prep, exc=exc)]
             if (self.supervisor is None
@@ -743,7 +767,8 @@ class DynamicBatcher:
         """Finisher stage: slice rows, resolve futures, book stats."""
         first: WaveStats | None = None
         for ex in execs:
-            ws = self._finish_one(ex)
+            with span("batcher.finish", ex.prep.seq):
+                ws = self._finish_one(ex)
             if first is None:
                 first = ws
         return first

@@ -104,12 +104,16 @@ def fut(f):
 
 
 def ws(w):
-    """A wave record less its wall-clock service seconds; an error by its
-    type only (the messages name each package's own text)."""
+    """A wave record less its wall-clock service seconds and the port's own
+    engine stamps (``t_dispatch``, ``t_engine_done``: the reference keeps
+    none; ``test_torch_trace.py`` checks them); an error by its type only
+    (the messages name each package's own text)."""
     if w is None:
         return None
     d = dataclasses.asdict(w)
     d.pop("seconds")
+    d.pop("t_dispatch", None)
+    d.pop("t_engine_done", None)
     d["error"] = None if w.error is None else w.error.split(":")[0]
     return d
 
