@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bitmap
+from repro_torch.core.readback import PinnedPool
 from repro_torch.core.scheduler import PUSH, SchedulerConfig, choose_mode_host
 from repro_torch.device import resolve_device
 from repro_torch.graph.csr import CSRGraph, edge_sources
@@ -321,7 +322,9 @@ class BFSRunner:
     :func:`resolve_use_kernels`).  After a run ``last_level_seconds``
     holds the host time of each level (step + statvec fetch, retries
     included; the fetch synchronises, so it covers the device work).
-    Each phase is a ``repro_torch.trace`` span.
+    Each phase is a ``repro_torch.trace`` span.  On a CUDA graph the level
+    array lands in reused page-locked host memory (``core.readback.
+    PinnedPool``; its counts in ``readback_stats``).
     """
 
     def __init__(self, g: LocalGraph, sched: SchedulerConfig | None = None,
@@ -331,6 +334,7 @@ class BFSRunner:
         self.init_budget = init_budget
         self.use_kernels = resolve_use_kernels(g, use_kernels)
         self._transfers = 0
+        self._readback = PinnedPool()
         self.last_level_seconds: list[float] = []
         # fetched once here so the GTEPS accounting after each run is not
         # an extra (uncounted) device->host transfer
@@ -354,9 +358,17 @@ class BFSRunner:
         """Out-degrees [n] (the engine protocol's TEPS numerator input)."""
         return self._out_deg_np
 
+    @property
+    def readback_stats(self) -> dict:
+        """The level array's page-locked pool: ``PinnedPool.stats()``."""
+        return self._readback.stats()
+
     def _fetch(self, t: torch.Tensor) -> np.ndarray:
+        """One blocking device->host transfer: ``.cpu()``, or for the
+        level array admitted on a card the runner's reused page-locked
+        blocks."""
         self._transfers += 1
-        return t.cpu().numpy()
+        return self._readback.fetch(t)
 
     def run(self, root: int) -> BFSResult:
         g = self.g
@@ -415,8 +427,9 @@ class BFSRunner:
             torch.cuda.synchronize(g.device)
         dt = time.perf_counter() - t0
         self.last_level_seconds = level_s
-        with span("readback"):
-            level_np = self._fetch(level[: g.n])
+        level = level[: g.n]
+        with span("readback", self._readback.admit(level)):
+            level_np = self._fetch(level)
         # GTEPS metric per paper §VI-A: sum of outgoing neighbor-list
         # lengths of all visited vertices; each edge counted once.
         with span("count"):

@@ -40,6 +40,7 @@ from repro_torch.core.bfs_local import (INF, SV_COUNT, SV_MF, SV_MU, SV_NF,
                                         LocalGraph, compact_indices,
                                         count_traversed_edges, expand_edges,
                                         resolve_use_kernels, validate_roots)
+from repro_torch.core.readback import PinnedPool
 from repro_torch.core.scheduler import (PUSH, SchedulerConfig, choose_mode,
                                         choose_mode_host)
 from repro_torch.trace import span
@@ -505,7 +506,10 @@ class VertexProgramRunner:
     After a run, ``last_stats`` holds the reference's counters and
     ``last_level_seconds`` the host time of each level (step + statvec
     fetch; the fetch synchronises, so it covers the device work).  Each
-    phase of the packed loop is a ``repro_torch.trace`` span.
+    phase of the packed loop is a ``repro_torch.trace`` span.  On a CUDA
+    graph the final readback lands in reused page-locked host memory
+    (``core.readback.PinnedPool``; its counts in ``readback_stats`` and
+    ``last_stats["readback"]``); the rows handed back own their block.
 
     ``integrity`` (see ``INTEGRITY_MODES``) may be changed between waves;
     ``witness_k``/``witness_budget``/``integrity_seed`` shape the witness
@@ -548,6 +552,7 @@ class VertexProgramRunner:
         self.sparse_pull = sparse_pull
         self.max_overflow_retries = max_overflow_retries
         self._transfers = 0
+        self._readback = PinnedPool()
         self.last_stats: dict = {}
         self.last_level_seconds: list[float] = []
         # fetched once here so the TEPS accounting after each run is not
@@ -564,20 +569,33 @@ class VertexProgramRunner:
         """Out-degrees [n] (the engine protocol's TEPS numerator input)."""
         return self._out_deg_np
 
+    @property
+    def readback_stats(self) -> dict:
+        """The final readback's page-locked pool: ``PinnedPool.stats()``."""
+        return self._readback.stats()
+
     def _fetch(self, t: torch.Tensor) -> np.ndarray:
-        """One blocking device->host transfer."""
+        """One blocking device->host transfer: ``.cpu()``, or for the
+        final readback admitted on a card the runner's reused page-locked
+        blocks."""
         self._transfers += 1
-        return t.cpu().numpy()
+        return self._readback.fetch(t)
 
     def _fetch_many(self, *ts: torch.Tensor) -> list[np.ndarray]:
-        """One blocking transfer for several int32 tensors: they travel
-        flattened in one buffer and are split on the host."""
-        flat = self._fetch(torch.cat([t.reshape(-1) for t in ts]))
-        out, at = [], 0
-        for t in ts:
-            out.append(flat[at: at + t.numel()].reshape(t.shape))
-            at += t.numel()
-        return out
+        """The final readback: one blocking transfer for several tensors
+        of one dtype.  They are written into one device buffer (a
+        transposed view is transposed by that copy), travel in one copy
+        and are split on the host, each C-contiguous.  The ``readback``
+        span carries the pool's counts."""
+        sizes = [t.numel() for t in ts]
+        flat = torch.empty(sum(sizes), dtype=ts[0].dtype,
+                           device=ts[0].device)
+        for part, t in zip(flat.split(sizes), ts):
+            part.view(t.shape).copy_(t)
+        with span("readback", self._readback.admit(flat)):
+            host = self._fetch(flat)
+        return [a.reshape(t.shape) for a, t in
+                zip(np.split(host, np.cumsum(sizes[:-1])), ts)]
 
     # -- integrity guards (active when ``integrity != "off"``) ------------
     def _guard_sv(self, sv: np.ndarray, lvl: int, nb: int,
@@ -741,15 +759,14 @@ class VertexProgramRunner:
         # is safe) and, with the witness on, its int32[2] verdict come back
         # in ONE transfer, so host_transfers stays iterations + 2; the rows
         # are transposed on the device, so each arrives contiguous
-        with span("readback"):
-            final = [value[: g.n].T, _plane_traversed(g, value)]
-            if witness:
-                k = min(self.witness_k, g.n)
-                sample = torch.from_numpy(
-                    self._witness_rng.integers(0, g.n, size=k)).to(g.device)
-                final.append(_witness_check(g, value, sample,
-                                            self.witness_budget))
-            rows, trav, *wit = self._fetch_many(*final)  # rows [B, n]
+        final = [value[: g.n].T, _plane_traversed(g, value)]
+        if witness:
+            k = min(self.witness_k, g.n)
+            sample = torch.from_numpy(
+                self._witness_rng.integers(0, g.n, size=k)).to(g.device)
+            final.append(_witness_check(g, value, sample,
+                                        self.witness_budget))
+        rows, trav, *wit = self._fetch_many(*final)  # rows [B, n]
         wit = wit[0] if wit else None
         with span("count"):
             if check:
@@ -769,6 +786,8 @@ class VertexProgramRunner:
                 witness_sampled=(0 if wit is None
                                  else min(self.witness_k, g.n)),
                 witness_truncated=bool(wit is not None and int(wit[1])))
+        if self._readback.readbacks:
+            self.last_stats["readback"] = self._readback.stats()
         self.last_level_seconds = level_s
         return res
 

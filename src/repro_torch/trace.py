@@ -22,7 +22,10 @@ The names, without the prefix:
   ``propagate``, ``commit``, ``statvec`` inside it where the step has
   such a phase), ``statvec_fetch`` (the level's one blocking fetch) and
   ``retry`` (a re-run step and its fetch after an overflow); after the
-  loop ``readback`` (the final fetch) and ``count`` (host work on the
+  loop ``readback`` (the final fetch; args on a CUDA graph: the page-
+  locked pool's ``stats()`` with this readback counted: ``readbacks``,
+  ``grown``, the readbacks that had to add a block, ``blocks``,
+  ``pinned_bytes`` and ``reuse_share``) and ``count`` (host work on the
   fetched rows);
 * the batcher (``launch.dynbatch``): ``batcher.cut``,
   ``batcher.execute``, ``batcher.finish`` (args: the wave's cut sequence

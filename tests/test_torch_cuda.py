@@ -1149,3 +1149,76 @@ def test_checkpoint_round_trip_of_a_card_state(dev, tmp_path):
             assert np.array_equal(got[k], want[k]), k
     loss, _ = loss_fn(on_card["params"], cfg, batch)
     assert bool(torch.isfinite(loss))
+
+
+# -- the final readback into reused page-locked blocks -----------------------
+
+@pytest.mark.cuda
+def test_readback_lands_in_reused_page_locked_blocks(dev):
+    """The runners' final readback on the card: rows held whole, a row
+    view and a batcher future's row keep their values across three more
+    waves, each against a plain ``.cpu()`` of the same device payload
+    taken at the time; the rows are page-locked, ``host_transfers`` stays
+    ``iterations + 2``, and in a closed loop every call from the third on
+    reuses a block without growing the pool."""
+    from repro_torch.graph import rmat_edges
+    from repro_torch.launch.dynbatch import DynamicBatcher
+    n = 1 << 14
+    src, dst = rmat_edges(14, 8, seed=3)
+    csr = csr_from_edges(src, dst, n)
+    g = build_local_graph(csr, transpose_csr(csr), device=dev)
+    keys = np.flatnonzero(np.diff(csr.indptr) > 0)
+
+    def roots(i, b=64):
+        return np.random.default_rng(i).choice(keys, b, replace=False)
+
+    runner = MultiSourceBFSRunner(g)
+    plain = []                      # each payload as .cpu() reads it
+    admit = runner._readback.admit
+
+    def spy(t):
+        plain.append(t.cpu().numpy())
+        return admit(t)
+    runner._readback.admit = spy
+
+    def plain_rows(k, b):
+        return plain[k][: b * g.n].reshape(b, g.n)
+
+    whole = runner.run_batch(roots(0))
+    row = runner.run_batch(roots(1))[5]
+    batcher = DynamicBatcher(runner, window=0.0, max_batch=64)
+    try:
+        fut_row = batcher.submit(int(keys[7])).result(timeout=120)
+    finally:
+        batcher.close(drain=True, timeout=120)
+    assert torch.from_numpy(whole).is_pinned()
+    for i in range(3):
+        res = runner.run(roots(10 + i))
+        assert res.host_transfers == res.iterations + 2
+        np.testing.assert_array_equal(res.levels, plain_rows(3 + i, 64))
+    np.testing.assert_array_equal(whole, plain_rows(0, 64))
+    np.testing.assert_array_equal(row, plain_rows(1, 64)[5])
+    np.testing.assert_array_equal(fut_row, plain_rows(2, 32)[0])
+    want = MultiSourceBFSRunner(
+        build_local_graph(csr, transpose_csr(csr), device="cpu"),
+        use_kernels=False).run(roots(0)).levels
+    np.testing.assert_array_equal(whole, want)
+
+    loop = MultiSourceBFSRunner(g)
+    held = None
+    for i in range(6):
+        held = loop.run_batch(roots(20 + i))
+        st = loop.last_stats["readback"]
+        assert st["readbacks"] == i + 1
+        if i >= 2:
+            assert (st["grown"], st["blocks"]) == (2, 2), st
+    assert held.flags.c_contiguous and held.dtype == np.int32
+
+    single = BFSRunner(g)
+    level = None
+    for i in range(4):
+        res = single.run(int(keys[i]))
+        level = res.level
+        assert res.host_transfers == res.iterations + 2
+    assert single.readback_stats["grown"] == 2
+    assert torch.from_numpy(level).is_pinned()
