@@ -30,10 +30,34 @@ Iteration structure:
 The batched pull runs through the row-tiled propagate kernel K2
 (``kernels.ops.msbfs_propagate_msgs``) under ``use_kernels``; the push's
 local scatter is the plain ``bitmap._scatter_or_rows``, as the
-reference's is jnp.  Every rank returns the whole value rows (the
-reference's one controller sees the whole array).  ``abstract()`` /
-``abstract_inputs()`` build the graph-less engine of the dry-run
-(``launch.dryrun``), one rank of the production mesh.
+reference's is jnp.  ``abstract()`` / ``abstract_inputs()`` build the
+graph-less engine of the dry-run (``launch.dryrun``), one rank of the
+production mesh.
+
+Leader and followers.  The group's first rank (``leader``) serves: its
+``run_batch(roots)`` / ``run(root)`` first hands the call to the other
+ranks in one small broadcast (op, batch, ``max_iters``, program and up to
+``HEADER_ROOTS`` roots; a longer batch sends the rest in a second one),
+then every rank runs the same level loop.  The other ranks either make the
+same calls (SPMD; their arguments are checked, then the leader's are
+used) or sit in :meth:`follow`, which serves the leader's calls until its
+:meth:`close`.  ``launch.leader.start_group`` starts the followers from
+the leader's process.
+
+One readback path: the level blocks are gathered to the leader only,
+put into original vertex order on its device and read back once into
+page-locked host blocks reused across calls (``core.readback``), int32
+``[B, n]`` as ``MultiSourceBFSRunner`` returns them; a follower returns
+None.  ``last_stats`` holds the reference's counts and ``seconds`` (to
+the last level's sync, the readback excluded), ``readback`` (the pool's
+counts, leader) and ``exchange_bytes`` (by kind: what this rank sent in
+the call's collectives; :data:`EXCHANGE_KINDS`).
+
+Spans (``repro_torch.trace``, the local engines' names): ``init``; per
+level ``level`` (args: its index) holding ``step`` (``expand``,
+``exchange``, ``commit``, ``statvec`` inside it), ``statvec_fetch`` and
+``retry``; ``readback`` (args: the rows' bytes) holding ``gather``; on a
+follower ``follow`` (args: the call's sequence number) around each call.
 """
 from __future__ import annotations
 
@@ -52,11 +76,30 @@ from repro_torch.core.dispatcher import (or_reduce_scatter_flat,
                                          or_reduce_scatter_staged,
                                          queue_dispatch,
                                          received_to_local_bits)
-from repro_torch.core.partition import PartitionedGraph, reindex
+from repro_torch.core.partition import PartitionedGraph, RankShards, reindex
+from repro_torch.core.readback import PinnedPool
 from repro_torch.core.scheduler import PUSH, SchedulerConfig, choose_mode_host
-from repro_torch.core.vertex_program import BFS, VertexProgram
+from repro_torch.core.vertex_program import BFS, PROGRAMS, VertexProgram
 from repro_torch.launch.mesh import (axes_group, axis_size, flat_axis_index,
                                      mesh_device)
+from repro_torch.trace import span
+
+# What each kind of collective counts in ``last_stats["exchange_bytes"]``:
+# the bytes this rank puts on the links for it.  crossbar: the all-to-all
+# rows addressed to other ranks; all_gather: its block once to each peer;
+# all_reduce: a ring's 2 (d - 1) / d of the vector; gather: its block to
+# the leader (the leader sends none); roots: the leader's call header once
+# to each peer.
+EXCHANGE_KINDS = ("crossbar", "all_gather", "all_reduce", "gather", "roots")
+
+# The leader's call header: op, batch, max_iters (0: none), program code,
+# then up to HEADER_ROOTS roots.
+_OP_CLOSE, _OP_BATCH, _OP_RUN = 0, 1, 2
+HEADER_ROOTS = 256
+_HEAD = 4
+# A follower runs a program it is told by name; -1: not a registered one
+# (only an SPMD call, which brings its own, can run it).
+_PROGRAM_CODES = tuple(PROGRAMS)
 
 
 @dataclasses.dataclass
@@ -150,23 +193,21 @@ def _expand_rows(active: torch.Tensor, indptr: torch.Tensor,
             valid, total.to(torch.int32))
 
 
-def _i32(xs, device) -> list:
-    return [torch.as_tensor(x, device=device).to(torch.int32).reshape(())
-            for x in xs]
-
-
 class DistributedBFS:
     """Vertex-program engine over ``mesh``: Q = d*k shards, k PEs per rank.
 
-    Every rank of the mesh constructs it with the same arguments and makes
-    the same calls; each holds only its own k shards on its device.  The
-    batched path is program-parameterized (``run_program_batch``): the
-    default ``program`` (BFS unless overridden at construction) keeps
-    ``run_batch`` protocol-uniform, so one ``DistributedBFS(pg, mesh,
-    program=CC)`` serves CC through the same ``BFSEngine`` surface.
+    Every rank of the mesh constructs it, from the whole partition
+    (``PartitionedGraph``, each rank keeping its own k shards) or from its
+    own shards alone (``RankShards``); each holds only its own k shards on
+    its device.  The leader's calls drive the group (see the module
+    docstring).  The batched path is program-parameterized
+    (``run_program_batch``): the default ``program`` (BFS unless
+    overridden at construction) keeps ``run_batch`` protocol-uniform, so
+    one ``DistributedBFS(pg, mesh, program=CC)`` serves CC through the
+    same ``BFSEngine`` surface.
     """
 
-    def __init__(self, pg: PartitionedGraph, mesh,
+    def __init__(self, pg: PartitionedGraph | RankShards, mesh,
                  axis_names: tuple[str, ...] | None = None,
                  cfg: DistConfig | None = None,
                  program: VertexProgram = BFS):
@@ -182,26 +223,39 @@ class DistributedBFS:
         self.vl = pg.verts_per_shard          # local vertices per shard
         self.wl = self.vl // bitmap.WORD_BITS  # local bitmap words
         self.n_pad = pg.num_vertices_padded
-        own = slice(self.sidx * self.k, (self.sidx + 1) * self.k)
-        put = lambda x: torch.from_numpy(  # noqa: E731
-            np.ascontiguousarray(x[own])).to(self.device)
+        if isinstance(pg, RankShards):
+            if (pg.rank, pg.k) != (self.sidx, self.k):
+                raise ValueError(f"shards of rank {pg.rank} ({pg.k} a rank) "
+                                 f"given to rank {self.sidx} ({self.k})")
+            mine = pg.to(self.device)
+            out_deg = pg.out_deg
+        else:
+            mine = pg.rank_shards(self.sidx, self.k).to(self.device)
+            out_deg = None
         # this rank's k shards of the shard-stacked graph arrays
-        self.out_indptr = put(pg.out_indptr.astype(np.int32))
-        self.out_indices = put(pg.out_indices)
-        self.in_indptr = put(pg.in_indptr.astype(np.int32))
-        self.in_indices = put(pg.in_indices)
+        (self.out_indptr, self.out_indices, self.in_indptr,
+         self.in_indices) = mine.tensors()
         # stored per-shard degrees: the per-level scheduler stats would
         # otherwise re-derive them every single iteration
-        out_deg_r = np.diff(pg.out_indptr, axis=1)
-        self._out_deg_dev = put(out_deg_r.astype(np.int32))
-        self._in_deg_dev = put(np.diff(pg.in_indptr, axis=1).astype(np.int32))
-        # reindexed position of every original vertex: the readback
-        # gathers rows into the original order on the device
-        orig = np.arange(pg.num_vertices)
-        pos = reindex(orig, q, self.vl) if pg.scheme == "hash" else orig
-        self._orig_pos = torch.from_numpy(pos).to(self.device)
+        self._out_deg_dev = (self.out_indptr[:, 1:]
+                             - self.out_indptr[:, :-1]).contiguous()
+        self._in_deg_dev = (self.in_indptr[:, 1:]
+                            - self.in_indptr[:, :-1]).contiguous()
         # original-order degrees for the engine protocol (per-wave TEPS)
-        self._out_deg_np = out_deg_r.reshape(-1)[pos].astype(np.int64)
+        if out_deg is None and isinstance(pg, PartitionedGraph):
+            pos = self._positions()
+            out_deg = np.diff(pg.out_indptr, axis=1).reshape(-1)[pos]
+        self._out_deg_np = (None if out_deg is None
+                            else np.asarray(out_deg, dtype=np.int64))
+        # reindexed position of every original vertex: the leader's
+        # readback gathers rows into the original order on its device
+        self._orig_pos = (torch.from_numpy(self._positions()).to(self.device)
+                          if self.leader else None)
+
+    def _positions(self) -> np.ndarray:
+        pg = self.pg
+        orig = np.arange(pg.num_vertices)
+        return reindex(orig, self.q, self.vl) if pg.scheme == "hash" else orig
 
     def _bind_mesh(self, mesh, axis_names, cfg) -> None:
         """What construction and :meth:`abstract` share: the mesh's axes
@@ -224,6 +278,10 @@ class DistributedBFS:
         self._group = axes_group(mesh, self.axes)
         self._axis_groups = tuple(mesh.get_group(a) for a in self.axes)
         self.sidx = flat_axis_index(mesh, self.axes)
+        self.leader = self.sidx == 0
+        self._pool = PinnedPool()
+        self._sent = dict.fromkeys(EXCHANGE_KINDS, 0)
+        self._closed = False
         self.last_stats: dict = {}
         self.last_level_seconds: list[float] = []
 
@@ -241,6 +299,7 @@ class DistributedBFS:
         self.pg = None
         self.program = BFS
         self._out_deg_np = None
+        self._orig_pos = None
         self._bind_mesh(mesh, axis_names, cfg)
         self.k = pes_per_device
         self.q = self.d * pes_per_device
@@ -281,31 +340,80 @@ class DistributedBFS:
         return int(self.pg.num_vertices)
 
     @property
-    def out_deg(self) -> np.ndarray:
-        """Original-order out-degrees [n] (engine protocol)."""
+    def out_deg(self) -> np.ndarray | None:
+        """Original-order out-degrees [n] (engine protocol); None on a
+        rank built from shards that did not bring them."""
         return self._out_deg_np
 
+    @property
+    def readback_stats(self) -> dict:
+        """The leader's page-locked readback pool: ``PinnedPool.stats()``."""
+        return self._pool.stats()
+
     # -- collectives --------------------------------------------------------
-    def _psum(self, *xs) -> np.ndarray:
-        """One all-reduce(SUM) of the int32 scalars ``xs``, fetched: the
-        replicated values every host decision reads."""
-        v = torch.stack(_i32(xs, self.device))
+    def _count(self, kind: str, nbytes: int) -> None:
+        self._sent[kind] += int(nbytes)
+
+    def _psum_dev(self, *xs) -> torch.Tensor:
+        """One all-reduce(SUM) of the int32 scalars and vectors ``xs``,
+        left on the device."""
+        v = torch.cat([torch.as_tensor(x, device=self.device).to(
+            torch.int32).reshape(-1) for x in xs])
+        self._count("all_reduce",
+                    2 * (self.d - 1) * v.numel() * 4 // self.d)
         dist.all_reduce(v, op=dist.ReduceOp.SUM, group=self._group)
-        return v.cpu().numpy()
+        return v
+
+    def _psum(self, *xs) -> np.ndarray:
+        """:meth:`_psum_dev`, fetched: the replicated values every host
+        decision reads."""
+        return self._psum_dev(*xs).cpu().numpy()
 
     def _all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """The [q, ...] stack of every rank's [k, ...] block, in shard
         order (the reference's tiled all_gather)."""
         x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(self.d)]
-        dist.all_gather(parts, x, group=self._group)
-        return torch.cat(parts)
+        self._count("all_gather", (self.d - 1) * x.numel() * x.element_size())
+        out = torch.empty((self.d,) + tuple(x.shape), dtype=x.dtype,
+                          device=x.device)
+        dist.all_gather(list(out.unbind(0)), x, group=self._group)
+        return out.reshape((self.d * x.shape[0],) + tuple(x.shape[1:]))
 
     def _crossbar(self, cand_w: torch.Tensor) -> torch.Tensor:
+        nbytes = cand_w.numel() * cand_w.element_size()
         if self.cfg.crossbar == "staged":
+            for size in self.axis_sizes:
+                self._count("crossbar", nbytes * (size - 1) // size)
+                nbytes //= size
             return or_reduce_scatter_staged(cand_w, self._axis_groups,
                                             self.axis_sizes)
+        self._count("crossbar", nbytes * (self.d - 1) // self.d)
         return or_reduce_scatter_flat(cand_w, self._group, self.d)
+
+    def _queue(self, ids: torch.Tensor):
+        """Queue-mode delivery of ``ids`` (one all-to-all of the FIFOs)."""
+        cap = self.cfg.queue_capacity
+        self._count("crossbar", (self.d - 1) * cap * 4)
+        recv, left = queue_dispatch(ids, self._group, self.d,
+                                    self.k * self.vl, cap)
+        cand = received_to_local_bits(recv, self.sidx, self.k * self.vl)
+        return cand.reshape(self.k, self.wl), left
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor | None:
+        """Every rank's [k, ...] block stacked [q, ...] on the leader, in
+        shard order; None on the other ranks."""
+        x = x.contiguous()
+        if self.d == 1:
+            return x
+        dst = dist.get_global_rank(self._group, 0)
+        if not self.leader:
+            self._count("gather", x.numel() * x.element_size())
+            dist.gather(x, None, dst=dst, group=self._group)
+            return None
+        out = torch.empty((self.d,) + tuple(x.shape), dtype=x.dtype,
+                          device=x.device)
+        dist.gather(x, list(out.unbind(0)), dst=dst, group=self._group)
+        return out.reshape((self.d * x.shape[0],) + tuple(x.shape[1:]))
 
     def _rows(self, x: torch.Tensor) -> torch.Tensor:
         """[k, vl, ...] -> [k * vl, ...]."""
@@ -315,13 +423,104 @@ class DistributedBFS:
         return (torch.arange(self.k, dtype=torch.int32, device=self.device)
                 * self.vl)[:, None]
 
-    def _readback(self, level: torch.Tensor) -> np.ndarray:
-        """Every shard's levels gathered, put into the original vertex
-        order on the device, read back once: [n] or [B, n] int64."""
-        lev = self._all_gather(level).reshape(self.n_pad, -1)
-        rows = lev[self._orig_pos].T.contiguous()          # [B, n]
-        out = rows.cpu().numpy().astype(np.int64)
+    def _readback(self, level: torch.Tensor) -> np.ndarray | None:
+        """Every shard's levels gathered to the leader, put into the
+        original vertex order on its device and read back once into the
+        page-locked pool: int32 [n] (``level`` [k, vl]) or [B, n]
+        (``level`` [k, vl, B]).  None on the other ranks."""
+        b = 1 if level.dim() == 2 else int(level.shape[2])
+        with span("readback", 4 * b * self.num_vertices):
+            with span("gather"):
+                lev = self._gather(level)
+            if lev is None:
+                return None
+            flat = lev.reshape(self.n_pad, b)
+            rows = torch.index_select(flat.T, 1, self._orig_pos)   # [B, n]
+            del lev, flat
+            self._pool.admit(rows)
+            out = self._pool.fetch(rows)
         return out[0] if level.dim() == 2 else out
+
+    # -- the leader's calls ---------------------------------------------------
+    def _announce(self, op: int, roots: np.ndarray | None = None,
+                  program: VertexProgram | None = None,
+                  max_iters: int | None = None):
+        """Hand the call to the group: the leader broadcasts it, every
+        other rank receives it.  Returns the leader's (op, roots, program,
+        max_iters); a program the header cannot name stays the caller's."""
+        if self.d == 1:
+            return op, roots, program, max_iters
+        src = dist.get_global_rank(self._group, 0)
+        if self.leader:
+            b = 0 if roots is None else int(roots.size)
+            code = (_PROGRAM_CODES.index(program.name)
+                    if program is not None and program.name in _PROGRAM_CODES
+                    and PROGRAMS[program.name] is program else -1)
+            head = np.zeros(_HEAD + HEADER_ROOTS, dtype=np.int64)
+            head[:_HEAD] = (op, b, max_iters or 0, code)
+            if b:
+                head[_HEAD:_HEAD + min(b, HEADER_ROOTS)] = roots[:HEADER_ROOTS]
+            self._broadcast(torch.from_numpy(head), src)
+            if b > HEADER_ROOTS:
+                self._broadcast(torch.from_numpy(roots[HEADER_ROOTS:]), src)
+            return op, roots, program, max_iters
+        head = torch.empty(_HEAD + HEADER_ROOTS, dtype=torch.int64,
+                           device=self.device)
+        dist.broadcast(head, src=src, group=self._group)
+        h = head.cpu().numpy()
+        op, b, iters, code = (int(x) for x in h[:_HEAD])
+        got = h[_HEAD:_HEAD + min(b, HEADER_ROOTS)]
+        if b > HEADER_ROOTS:
+            rest = torch.empty(b - HEADER_ROOTS, dtype=torch.int64,
+                               device=self.device)
+            dist.broadcast(rest, src=src, group=self._group)
+            got = np.concatenate([got, rest.cpu().numpy()])
+        if code >= 0:
+            program = PROGRAMS[_PROGRAM_CODES[code]]
+        elif op == _OP_BATCH and program is None:
+            raise RuntimeError("the leader runs a program a follower cannot "
+                               "name: make the same call on every rank")
+        return op, got.astype(np.int64), program, iters or None
+
+    def _broadcast(self, x: torch.Tensor, src: int) -> None:
+        """The leader's int64 ``x`` to every rank of the group."""
+        self._count("roots", (self.d - 1) * x.numel() * x.element_size())
+        dist.broadcast(x.to(self.device), src=src, group=self._group)
+
+    def follow(self) -> int:
+        """On a rank other than the leader: serve the leader's calls, each
+        with the same level loop, until the leader's :meth:`close`.  Returns
+        the number of calls served."""
+        if self.leader:
+            raise RuntimeError("the leader calls run_batch, not follow")
+        calls = 0
+        while True:
+            self._reset_counts()
+            op, roots, program, max_iters = self._announce(_OP_CLOSE)
+            if op == _OP_CLOSE:
+                self._closed = True
+                return calls
+            with span("follow", calls):
+                if op == _OP_BATCH:
+                    self._run_batch(program, roots, max_iters)
+                else:
+                    self._run_single(int(roots[0]), max_iters)
+            calls += 1
+
+    def close(self) -> None:
+        """End the group's calls: the leader releases the followers from
+        :meth:`follow`; a rank making the leader's calls itself (SPMD)
+        takes the same message.  Once only; a one-rank group has nothing
+        to end."""
+        if self._closed or self.d == 1:
+            return
+        op = self._announce(_OP_CLOSE)[0]
+        self._closed = True
+        if op != _OP_CLOSE:
+            raise RuntimeError(f"close() met the leader's call {op}")
+
+    def _reset_counts(self) -> None:
+        self._sent = dict.fromkeys(EXCHANGE_KINDS, 0)
 
     # -- single-source steps ------------------------------------------------
     def init_state(self, root_reindexed: int):
@@ -359,7 +558,7 @@ class DistributedBFS:
     def _push(self, frontier, visited, level, lvl: int, budget: int):
         """Returns (new, visited, level, leftover, [overflow, total,
         pending] all-reduced)."""
-        cfg, k, vl = self.cfg, self.k, self.vl
+        cfg, k = self.cfg, self.k
         active = _compact_rows(self._unpack(frontier))
         _, nbr, _, total = _expand_rows(active, self.out_indptr,
                                         self.out_indices, budget)
@@ -370,10 +569,7 @@ class DistributedBFS:
             leftover = torch.full((k, budget), -1, dtype=torch.int32,
                                   device=self.device)
         else:
-            recv, leftover_f = queue_dispatch(nbr_flat, self._group, self.d,
-                                              k * vl, cfg.queue_capacity)
-            cand_local = received_to_local_bits(
-                recv, self.sidx, k * vl).reshape(k, self.wl)
+            cand_local, leftover_f = self._queue(nbr_flat)
             leftover = leftover_f.reshape(k, budget)
         new, v2, lev2 = self._commit_single(cand_local, visited, level, lvl)
         sums = self._psum((total > budget).any(), total.sum(dtype=torch.int32),
@@ -382,11 +578,7 @@ class DistributedBFS:
 
     def _queue_drain(self, frontier, visited, level, lvl: int, leftover):
         """Retry round for queue-mode overflow: dispatch leftover IDs."""
-        k, vl = self.k, self.vl
-        recv, left2 = queue_dispatch(leftover.reshape(-1), self._group,
-                                     self.d, k * vl, self.cfg.queue_capacity)
-        cand_local = received_to_local_bits(
-            recv, self.sidx, k * vl).reshape(k, self.wl)
+        cand_local, left2 = self._queue(leftover.reshape(-1))
         new, v2, lev2 = self._commit_single(cand_local, visited, level, lvl)
         pending = self._psum((left2 >= 0).sum(dtype=torch.int32))[0]
         return frontier | new, v2, lev2, pending, left2.reshape(
@@ -415,20 +607,36 @@ class DistributedBFS:
     # crossbar payload is the packed source-mask plane set and combining
     # stays a bitwise OR, so the same OR-reduce-scatter delivers a whole
     # batch per exchange.  Each step returns the NEXT level's scheduler
-    # stats in one all-reduced int32[7], so run_batch makes a single
-    # blocking device->host transfer per level.
+    # stats in one all-reduced int32[7 + 2d] left on the device, so
+    # run_batch makes a single blocking device->host transfer per level:
+    # the seven sums of ``bfs_local``'s statvec, then each rank's largest
+    # shard's push need (out-degrees of its frontier) at [7 + rank] and
+    # pull need (in-degrees of its unvisited) at [7 + d + rank].
 
-    def _ms_statvec_b(self, new, s2, total, overflow, nb: int) -> np.ndarray:
-        pmask = bitmap.plane_mask(nb, self.device)
-        any_f = bitmap.any_rows(new)                   # [k, vl]
-        un_any = bitmap.any_rows(~s2 & pmask)
-        zero = torch.zeros((), dtype=torch.int32, device=self.device)
-        return self._psum(
-            any_f.sum(dtype=torch.int32),
-            torch.where(any_f, self._out_deg_dev, zero).sum(dtype=torch.int32),
-            torch.where(un_any, self._in_deg_dev, zero).sum(dtype=torch.int32),
-            un_any.sum(dtype=torch.int32), total, overflow,
-            bitmap.popcount(new))
+    def _ms_statvec_b(self, new, s2, total, overflow, nb: int
+                      ) -> torch.Tensor:
+        with span("statvec"):
+            pmask = bitmap.plane_mask(nb, self.device)
+            any_f = bitmap.any_rows(new)                   # [k, vl]
+            un_any = bitmap.any_rows(~s2 & pmask)
+            zero = torch.zeros((), dtype=torch.int32, device=self.device)
+            m_f = torch.where(any_f, self._out_deg_dev, zero).sum(
+                1, dtype=torch.int32)                      # [k]
+            m_u = torch.where(un_any, self._in_deg_dev, zero).sum(
+                1, dtype=torch.int32)
+            need = torch.zeros(2 * self.d, dtype=torch.int32,
+                               device=self.device)
+            need[self.sidx] = m_f.max()
+            need[self.d + self.sidx] = m_u.max()
+            return self._psum_dev(
+                any_f.sum(dtype=torch.int32), m_f.sum(dtype=torch.int32),
+                m_u.sum(dtype=torch.int32), un_any.sum(dtype=torch.int32),
+                total, overflow, bitmap.popcount(new), need)
+
+    def _shard_need(self, sv: np.ndarray, push: bool) -> int:
+        """The largest shard's expansion need, from the statvec."""
+        lo = len(sv) - 2 * self.d + (0 if push else self.d)
+        return int(sv[lo:lo + self.d].max())
 
     def init_state_batch(self, roots_reindexed: np.ndarray):
         k, vl = self.k, self.vl
@@ -448,30 +656,35 @@ class DistributedBFS:
     def _push_b(self, frontier, seen, level, lvl: int, budget: int, nb: int,
                 program: VertexProgram, need: int):
         k, nwb = self.k, frontier.shape[2]
-        active = _compact_rows(bitmap.any_rows(frontier))
-        src, nbr, valid, total = _expand_rows(active, self.out_indptr,
-                                              self.out_indices, budget)
-        # P2->P3 on packed words: gather each edge's source-mask word,
-        # scatter-OR into the GLOBAL candidate planes (the crossbar
-        # payload), no bool intermediates.  The byte-plane scatter costs
-        # 32 * nwb bytes a message, so only the valid slots go in: at most
-        # ``need``, the level's edge count every rank read from the
-        # statvec (the budget only grows, so a tail push level would
-        # otherwise scatter millions of empty slots)
-        cap = max(min(need, k * budget), 1)
-        slot, _ = compact_indices(valid.reshape(-1), cap)
-        ok = slot >= 0
-        slot = slot.clamp(min=0).to(torch.int64)
-        src_row = (src.clamp(min=0) + self._row_offsets()).reshape(-1)[slot]
-        msg = self._rows(frontier)[src_row.to(torch.int64)]
-        tgt = torch.where(ok, nbr.reshape(-1)[slot], self.n_pad)
-        cand_w = bitmap._scatter_or_rows(
-            torch.zeros((self.n_pad, nwb), dtype=torch.int32,
-                        device=self.device), tgt, msg).reshape(-1)
-        cand_local = self._crossbar(cand_w).reshape(k, self.vl, nwb)
-        new = cand_local & ~seen
-        s2 = seen | new
-        lev2 = program.commit(level, bitmap.unpack_rows(new, nb), lvl)
+        with span("expand"):
+            active = _compact_rows(bitmap.any_rows(frontier))
+            src, nbr, valid, total = _expand_rows(active, self.out_indptr,
+                                                  self.out_indices, budget)
+            # P2->P3 on packed words: gather each edge's source-mask word,
+            # scatter-OR into the GLOBAL candidate planes (the crossbar
+            # payload), no bool intermediates.  The byte-plane scatter
+            # costs 32 * nwb bytes a message, so only the valid slots go
+            # in: at most ``need``, the level's edge count every rank read
+            # from the statvec (the budget only grows, so a tail push
+            # level would otherwise scatter millions of empty slots)
+            cap = max(min(need, k * budget), 1)
+            slot, _ = compact_indices(valid.reshape(-1), cap)
+            ok = slot >= 0
+            slot = slot.clamp(min=0).to(torch.int64)
+            src_row = (src.clamp(min=0) + self._row_offsets()).reshape(
+                -1)[slot]
+            msg = self._rows(frontier)[src_row.to(torch.int64)]
+            tgt = torch.where(ok, nbr.reshape(-1)[slot], self.n_pad)
+            cand_w = bitmap._scatter_or_rows(
+                torch.zeros((self.n_pad, nwb), dtype=torch.int32,
+                            device=self.device), tgt, msg).reshape(-1)
+            del src, nbr, valid, slot, ok, src_row, msg, tgt
+        with span("exchange"):
+            cand_local = self._crossbar(cand_w).reshape(k, self.vl, nwb)
+        with span("commit"):
+            new = cand_local & ~seen
+            s2 = seen | new
+            lev2 = program.commit(level, bitmap.unpack_rows(new, nb), lvl)
         sv = self._ms_statvec_b(new, s2, total.sum(dtype=torch.int32),
                                 (total > budget).any(), nb)
         return new, s2, lev2, sv
@@ -481,35 +694,41 @@ class DistributedBFS:
         k, vl, nwb = self.k, self.vl, frontier.shape[2]
         # all-gather the packed source planes of every vertex: the pull
         # mode's "read current_frontier of remote parents", batched
-        f_global = self._all_gather(frontier).reshape(-1, nwb)
-        pmask = bitmap.plane_mask(nb, self.device)
-        unvisited = _compact_rows(bitmap.any_rows(~seen & pmask))
-        child, parent, valid, total = _expand_rows(
-            unvisited, self.in_indptr, self.in_indices, budget)
-        # packed P2->P3: parents' plane words combine into each PE's local
-        # candidate words — the gather reads the all-gathered GLOBAL
-        # frontier while the scatter stays shard-local, the msgs form's
-        # contract
-        msg = f_global[parent.clamp(min=0).reshape(-1).to(torch.int64)]
-        tgt = torch.where(valid, child + self._row_offsets(), -1).reshape(-1)
-        if self.use_kernels:
-            # K2 over the k PE rows stacked flat: each tile lies inside one
-            # PE's vertex interval (the paper's PC-feeds-its-own-partition
-            # rule), and P3 fuses in-kernel
-            from repro_torch.kernels import ops as kops
-            new_f, s2_f, _ = kops.msbfs_propagate_msgs(
-                self._rows(seen), msg, tgt, valid.reshape(-1),
-                tile_rows=pull_tile_rows(vl, nwb, self.cfg.tile_rows),
-                op=program.combine)
-            new = new_f.reshape(k, vl, nwb)
-            s2 = s2_f.reshape(k, vl, nwb)
-        else:
-            cand_w = bitmap._scatter_or_rows(
-                torch.zeros((k * vl, nwb), dtype=torch.int32,
-                            device=self.device), tgt, msg)
-            new = cand_w.reshape(k, vl, nwb) & ~seen
-            s2 = seen | new
-        lev2 = program.commit(level, bitmap.unpack_rows(new, nb), lvl)
+        with span("exchange"):
+            f_global = self._all_gather(frontier).reshape(-1, nwb)
+        with span("expand"):
+            pmask = bitmap.plane_mask(nb, self.device)
+            unvisited = _compact_rows(bitmap.any_rows(~seen & pmask))
+            child, parent, valid, total = _expand_rows(
+                unvisited, self.in_indptr, self.in_indices, budget)
+            # packed P2->P3: parents' plane words combine into each PE's
+            # local candidate words — the gather reads the all-gathered
+            # GLOBAL frontier while the scatter stays shard-local, the
+            # msgs form's contract
+            msg = f_global[parent.clamp(min=0).reshape(-1).to(torch.int64)]
+            tgt = torch.where(valid, child + self._row_offsets(),
+                              -1).reshape(-1)
+            del f_global, unvisited, child, parent
+        with span("commit"):
+            if self.use_kernels:
+                # K2 over the k PE rows stacked flat: each tile lies inside
+                # one PE's vertex interval (the paper's PC-feeds-its-own-
+                # partition rule), and P3 fuses in-kernel
+                from repro_torch.kernels import ops as kops
+                new_f, s2_f, _ = kops.msbfs_propagate_msgs(
+                    self._rows(seen), msg, tgt, valid.reshape(-1),
+                    tile_rows=pull_tile_rows(vl, nwb, self.cfg.tile_rows),
+                    op=program.combine)
+                new = new_f.reshape(k, vl, nwb)
+                s2 = s2_f.reshape(k, vl, nwb)
+            else:
+                cand_w = bitmap._scatter_or_rows(
+                    torch.zeros((k * vl, nwb), dtype=torch.int32,
+                                device=self.device), tgt, msg)
+                new = cand_w.reshape(k, vl, nwb) & ~seen
+                s2 = seen | new
+            del msg, tgt, valid
+            lev2 = program.commit(level, bitmap.unpack_rows(new, nb), lvl)
         sv = self._ms_statvec_b(new, s2, total.sum(dtype=torch.int32),
                                 (total > budget).any(), nb)
         return new, s2, lev2, sv
@@ -521,9 +740,19 @@ class DistributedBFS:
             return reindex(roots, pg.num_shards, pg.verts_per_shard)
         return roots
 
-    def run(self, root: int, max_iters: int | None = None) -> np.ndarray:
-        """BFS from original-ID ``root``; returns level int64[num_vertices]."""
+    def run(self, root: int, max_iters: int | None = None
+            ) -> np.ndarray | None:
+        """BFS from original-ID ``root``; returns level int32[num_vertices]
+        on the leader, None on the other ranks."""
+        root = int(validate_roots(np.asarray([root]), self.num_vertices)[0])
+        self._reset_counts()
+        _, roots, _, max_iters = self._announce(
+            _OP_RUN, np.asarray([root], dtype=np.int64), None, max_iters)
+        return self._run_single(int(roots[0]), max_iters)
+
+    def _run_single(self, root: int, max_iters: int | None):
         pg, cfg = self.pg, self.cfg
+        t0 = time.perf_counter()
         root_r = int(self._root_reindexed(np.asarray(root)))
         frontier, visited, level = self.init_state(root_r)
         budget = cfg.edge_budget
@@ -536,30 +765,33 @@ class DistributedBFS:
             n_f, m_f, m_u, n_u = self._stats(frontier, visited)
             if int(n_f) == 0:
                 break
-            mode = choose_mode_host(cfg.scheduler, mode, int(n_f), int(m_f),
-                                    int(m_u), pg.num_vertices, int(n_u))
-            is_push = mode == PUSH
-            need = int(m_f) if is_push else int(m_u)
-            while budget * self.k < need:
-                budget *= 2
-            while True:
-                if is_push:
-                    (frontier2, visited2, level2, leftover,
-                     (overflow, total, pending)) = self._push(
-                        frontier, visited, level, iters, budget)
-                else:
-                    (frontier2, visited2, level2,
-                     (overflow, total)) = self._pull(
-                        frontier, visited, level, iters, budget)
-                    pending = 0
-                if int(overflow) == 0:
-                    break
-                budget *= 2            # HBM-reader queue deepening, retry
-            # queue-mode FIFO overflow: extra dispatch rounds (same level)
-            while int(pending) > 0:
-                frontier2, visited2, level2, pending, leftover = \
-                    self._queue_drain(frontier2, visited2, level2, iters,
-                                      leftover)
+            with span("level", iters):
+                mode = choose_mode_host(cfg.scheduler, mode, int(n_f),
+                                        int(m_f), int(m_u), pg.num_vertices,
+                                        int(n_u))
+                is_push = mode == PUSH
+                need = int(m_f) if is_push else int(m_u)
+                while budget * self.k < need:
+                    budget *= 2
+                while True:
+                    if is_push:
+                        (frontier2, visited2, level2, leftover,
+                         (overflow, total, pending)) = self._push(
+                            frontier, visited, level, iters, budget)
+                    else:
+                        (frontier2, visited2, level2,
+                         (overflow, total)) = self._pull(
+                            frontier, visited, level, iters, budget)
+                        pending = 0
+                    if int(overflow) == 0:
+                        break
+                    budget *= 2            # HBM-reader queue deepening
+                # queue-mode FIFO overflow: extra dispatch rounds (same
+                # level)
+                while int(pending) > 0:
+                    frontier2, visited2, level2, pending, leftover = \
+                        self._queue_drain(frontier2, visited2, level2,
+                                          iters, leftover)
             frontier, visited, level = frontier2, visited2, level2
             inspected += int(total)
             if is_push:
@@ -567,33 +799,38 @@ class DistributedBFS:
             else:
                 pull_iters += 1
             iters += 1
+        seconds = time.perf_counter() - t0
         out = self._readback(level)
         self.last_stats = dict(iterations=iters, edges_inspected=inspected,
                                push_iters=push_iters, pull_iters=pull_iters)
+        self._finish_stats(seconds)
         return out
 
-    def run_batch(self, roots, max_iters: int | None = None) -> np.ndarray:
+    def run_batch(self, roots, max_iters: int | None = None
+                  ) -> np.ndarray | None:
         """Batched vertex program from original-ID ``roots`` (the engine's
         construction-time ``program``; BFS by default).
 
-        Returns value rows int64[B, num_vertices].  All B planes run
-        level-synchronously over the same sharded graph; every CSR/CSC
-        edge read and every crossbar exchange carries the whole batch's
-        plane masks (bitmap dispatch only — FIFO queues carry scalar
-        vertex IDs and would lose the sharing).
+        Returns value rows int32[B, num_vertices] on the leader, None on
+        the other ranks.  All B planes run level-synchronously over the
+        same sharded graph; every CSR/CSC edge read and every crossbar
+        exchange carries the whole batch's plane masks (bitmap dispatch
+        only — FIFO queues carry scalar vertex IDs and would lose the
+        sharing).
         """
         return self.run_program_batch(self.program, roots, max_iters)
 
     def run_program_batch(self, program: VertexProgram, roots,
-                          max_iters: int | None = None) -> np.ndarray:
+                          max_iters: int | None = None
+                          ) -> np.ndarray | None:
         """One-sync-per-level batched driver, parameterized by program.
 
         The SHARED distributed entry: root validation happens here, once,
-        for every algorithm.  ``last_level_seconds`` holds each level's
-        host time (steps + statvec fetch, the readback excluded).
+        for every algorithm, before the call reaches the group.
+        ``last_level_seconds`` holds each level's host time (steps +
+        statvec fetch, the readback excluded).
         """
-        pg, cfg = self.pg, self.cfg
-        if cfg.dispatch != "bitmap":
+        if self.cfg.dispatch != "bitmap":
             raise NotImplementedError(
                 "run_batch supports bitmap dispatch only: FIFO queues carry "
                 "scalar vertex IDs, not per-source masks")
@@ -604,13 +841,27 @@ class DistributedBFS:
         # validate BEFORE the int64 cast (a float root must error, not
         # truncate); duplicates are allowed — one plane slot each
         roots = validate_roots(np.asarray(roots),
-                               pg.num_vertices).astype(np.int64)
+                               self.num_vertices).astype(np.int64)
+        self._reset_counts()
+        _, roots, program, max_iters = self._announce(
+            _OP_BATCH, roots, program, max_iters)
+        return self._run_batch(program, roots, max_iters)
+
+    def _fetch_sv(self, sv: torch.Tensor) -> np.ndarray:
+        with span("statvec_fetch"):
+            return sv.cpu().numpy()
+
+    def _run_batch(self, program: VertexProgram, roots: np.ndarray,
+                   max_iters: int | None):
+        pg, cfg = self.pg, self.cfg
+        t0 = time.perf_counter()
         b = int(roots.size)
-        frontier, seen, level = self.init_state_batch(
-            self._root_reindexed(roots))
-        # one-sync-per-level driver: every step returns the next level's
-        # scheduler stats as ONE replicated int32[7]
-        sv = self._ms_statvec_b(frontier, seen, 0, 0, b)
+        with span("init"):
+            frontier, seen, level = self.init_state_batch(
+                self._root_reindexed(roots))
+            # one-sync-per-level driver: every step returns the next
+            # level's scheduler stats as ONE replicated int32 vector
+            sv = self._fetch_sv(self._ms_statvec_b(frontier, seen, 0, 0, b))
         budget = cfg.edge_budget
         mode = PUSH
         iters = 0
@@ -620,22 +871,31 @@ class DistributedBFS:
         max_iters = max_iters or self.n_pad
         while iters < max_iters and not program.done(sv):
             t_lvl = time.perf_counter()
-            mode = choose_mode_host(cfg.scheduler, mode, int(sv[SV_NF]),
-                                    int(sv[SV_MF]), int(sv[SV_MU]),
-                                    pg.num_vertices, int(sv[SV_NU]))
-            is_push = mode == PUSH
-            need = int(sv[SV_MF]) if is_push else int(sv[SV_MU])
-            while budget * self.k < need:
-                budget *= 2
-            step = self._push_b if is_push else self._pull_b
-            kw = dict(need=need) if is_push else {}
-            while True:
-                frontier2, seen2, level2, sv = step(
-                    frontier, seen, level, iters, budget, b, program, **kw)
-                if int(sv[SV_OVERFLOW]) == 0:
-                    break
-                budget *= 2            # HBM-reader queue deepening, retry
-            frontier, seen, level = frontier2, seen2, level2
+            with span("level", iters):
+                mode = choose_mode_host(cfg.scheduler, mode, int(sv[SV_NF]),
+                                        int(sv[SV_MF]), int(sv[SV_MU]),
+                                        pg.num_vertices, int(sv[SV_NU]))
+                is_push = mode == PUSH
+                need = int(sv[SV_MF]) if is_push else int(sv[SV_MU])
+                # the budget is a shard's: sized from the largest shard's
+                # need, so no shard overflows and none is over-provisioned
+                shard_need = self._shard_need(sv, is_push)
+                while budget < shard_need:
+                    budget *= 2
+                step = self._push_b if is_push else self._pull_b
+                kw = dict(need=need) if is_push else {}
+                with span("step"):
+                    new = step(frontier, seen, level, iters, budget, b,
+                               program, **kw)
+                sv = self._fetch_sv(new[3])
+                while int(sv[SV_OVERFLOW]):
+                    budget *= 2        # HBM-reader queue deepening, retry
+                    with span("retry"):
+                        new = step(frontier, seen, level, iters, budget, b,
+                                   program, **kw)
+                        sv = new[3].cpu().numpy()
+                frontier, seen, level = new[:3]
+                del new
             inspected += int(sv[SV_TOTAL])
             if is_push:
                 push_iters += 1
@@ -643,9 +903,18 @@ class DistributedBFS:
                 pull_iters += 1
             iters += 1
             level_s.append(time.perf_counter() - t_lvl)
+        seconds = time.perf_counter() - t0
         out = self._readback(level)
         self.last_stats = dict(iterations=iters, edges_inspected=inspected,
                                push_iters=push_iters, pull_iters=pull_iters,
                                batch=b, algo=program.name)
+        self._finish_stats(seconds)
         self.last_level_seconds = level_s
         return out
+
+    def _finish_stats(self, seconds: float) -> None:
+        """The counts every call adds to the reference's ``last_stats``."""
+        self.last_stats.update(seconds=seconds,
+                               exchange_bytes=dict(self._sent))
+        if self.leader:
+            self.last_stats["readback"] = self._pool.stats()

@@ -33,7 +33,9 @@ pool (``repro_torch.launch.pool``):
 In a process group of more than one rank (``torch.distributed``, started
 by the caller), :func:`build_engine` serves from the distributed engine
 ``core.bfs_distributed.DistributedBFS`` instead, every rank making the
-same calls.
+same calls; the rows and what is counted from them come back on rank 0
+(the engine's leader) alone.  To serve from one process instead, start
+the other ranks from it with ``launch.leader.start_group``.
 """
 from __future__ import annotations
 
@@ -196,7 +198,8 @@ def bfs_batch(roots, *, graph: str = "rmat16-16", engine=None, out_deg=None,
     ``ValueError``.  Pass a prebuilt ``engine`` (from :func:`build_engine`)
     to keep the graph resident across calls; otherwise one is built for
     ``graph`` on ``device``.  Returns value rows [B, |V|] plus aggregate
-    serving stats."""
+    serving stats; on a distributed engine's other ranks the rows are
+    None and nothing is counted from them."""
     if engine is None:
         engine, out_deg = build_engine(graph, algo=algo, device=device)
     roots = np.asarray(roots)        # the engine validates (no cast here)
@@ -205,7 +208,7 @@ def bfs_batch(roots, *, graph: str = "rmat16-16", engine=None, out_deg=None,
     seconds = time.perf_counter() - t0      # traversal only, not stats
     stats = dict(getattr(engine, "last_stats", {}))
     traversed = stats.pop("traversed_edges", None)
-    if out_deg is not None:
+    if out_deg is not None and levels is not None:
         traversed = count_traversed_edges(out_deg, levels)
     stats.pop("seconds", None)
     stats["batch"] = int(roots.size)
@@ -231,7 +234,8 @@ def serve_bfs(graph: str, batch: int, seed: int = 0, algo: str = "bfs", *,
     out = bfs_batch(roots, engine=engine, out_deg=deg)
     levels = out.pop("levels")
     out.update(graph=graph, algo=algo,
-               reached_mean=float((levels < INF).sum(1).mean()))
+               reached_mean=(None if levels is None
+                             else float((levels < INF).sum(1).mean())))
     if keep_levels:
         out.update(roots=roots, levels=levels,
                    level_seconds=list(engine.last_level_seconds))

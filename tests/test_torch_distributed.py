@@ -5,7 +5,10 @@ One rank: a one-rank gloo group made by a fixture in this process, beside
 the reference on a one-device mesh, both on the same graphs.  Many ranks:
 eight gloo ranks (``test_torch_dispatcher.run_ranks``) against the
 reference on eight host devices in a subprocess.  The comparison is
-exact: equal level rows (int64) and equal ``last_stats``.  The reference's
+exact: equal level rows and, on the reference's keys, equal
+``last_stats``.  The port's rows are int32 ``[B, n]`` on the group's
+first rank (its leader; the other ranks return None), the reference's
+int64 on its one controller.  The reference's
 batched pull with ``use_pallas=True`` fails to trace on the installed JAX,
 so the port's kernel path is held against the reference's jnp path.
 """
@@ -67,9 +70,9 @@ def _ref_mesh():
 
 
 def _assert_same(got, want, eng, ref):
-    assert got.dtype == want.dtype == np.int64
+    assert got.dtype == np.int32 and want.dtype == np.int64
     np.testing.assert_array_equal(got, want)
-    assert eng.last_stats == ref.last_stats
+    assert {k: eng.last_stats[k] for k in ref.last_stats} == ref.last_stats
 
 
 def _random_pair(shards: int = 4, seed: int = 3, symmetric: bool = False):
@@ -204,7 +207,11 @@ def test_kernel_path_on_cpu_equals_plain_path(graph_cache, mesh,
     kern = DistributedBFS(pg, mesh, cfg=DistConfig(use_kernels=True,
                                                    scheduler=sched))
     got = kern.run_batch(roots)
-    _assert_same(got, want, kern, plain)
+    assert got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    timed = ("seconds",)
+    assert {k: v for k, v in kern.last_stats.items() if k not in timed} == \
+        {k: v for k, v in plain.last_stats.items() if k not in timed}
     assert len(tiles) >= kern.last_stats["pull_iters"] > 0
     assert set(tiles) == {pg.verts_per_shard}
     assert DistributedBFS(pg, mesh).use_kernels is False    # CPU: plain
@@ -291,10 +298,16 @@ levels, stats = {}, {}
 for key, q, scheme, kw, axes in CASES:
     pg = partition_graph(ds.csr, ds.csc, q, scheme=scheme)
     eng = DistributedBFS(pg, mesh, axis_names=axes, cfg=DistConfig(**kw))
-    levels[key], stats[key] = eng.run(ROOT_V), eng.last_stats
+    calls = [(key, lambda: eng.run(ROOT_V))]
     if kw["dispatch"] == "bitmap":
-        levels[key + "/batch"] = eng.run_batch(np.asarray(BATCH_ROOTS))
-        stats[key + "/batch"] = eng.last_stats
+        calls.append((key + "/batch",
+                      lambda: eng.run_batch(np.asarray(BATCH_ROOTS))))
+    for name, call in calls:
+        rows = call()
+        assert (rows is None) != eng.leader, (name, eng.leader)
+        if eng.leader:
+            levels[name] = rows
+        stats[name] = dict(eng.last_stats, leader=eng.leader)
 np.savez(f"{tmp}/rank{rank}.npz", **levels)
 with open(f"{tmp}/rank{rank}.json", "w") as f:
     json.dump(stats, f)
@@ -335,11 +348,17 @@ def _run_grid(tmp_path, shape, names, cases):
     want_stats = json.loads((tmp_path / "ref.json").read_text())
     oracle = {r: bfs_oracle(j_get_dataset("small-12-8").csr, r)
               for r in {ROOT_V, *BATCH_ROOTS}}
+    served = dict.fromkeys(want.files, 0)
     for r in range(world):
         got = np.load(tmp_path / f"rank{r}.npz")
         stats = json.loads((tmp_path / f"rank{r}.json").read_text())
-        assert sorted(got.files) == sorted(want.files)
-        for key in want.files:
+        assert sorted(stats) == sorted(want.files)
+        # the rows come back on each group's leader alone
+        assert sorted(got.files) == sorted(
+            key for key in want.files if stats[key]["leader"]), r
+        for key in got.files:
+            served[key] += 1
+            assert got[key].dtype == np.int32
             rows = np.atleast_2d(got[key])
             roots = BATCH_ROOTS if key.endswith("/batch") else [ROOT_V]
             for row, root in zip(rows, roots):
@@ -347,7 +366,13 @@ def _run_grid(tmp_path, shape, names, cases):
                                               err_msg=f"rank {r} {key}")
             np.testing.assert_array_equal(got[key], want[key],
                                           err_msg=f"rank {r} {key}")
-            assert stats[key] == want_stats[key], (r, key)
+        for key in want.files:
+            assert {k: stats[key][k] for k in want_stats[key]} == \
+                want_stats[key], (r, key)
+    # one leader a group: one for the whole mesh, one a "pod" replica
+    # where the shards span ("data", "model") alone
+    assert all(n == (2 if key.startswith("data-model") else 1)
+               for key, n in served.items()), served
 
 
 @pytest.mark.slow

@@ -123,7 +123,9 @@ def test_build_bfs_engine_matches_reference(graph_cache, one_rank):
     np.testing.assert_array_equal(deg, jdeg)
     np.testing.assert_array_equal(engine.run_batch([3, 9]),
                                   jeng.run_batch([3, 9]))
-    assert engine.last_stats == jeng.last_stats
+    # the reference's counts; the port adds timings and byte counters
+    assert {k: engine.last_stats[k] for k in jeng.last_stats} == \
+        jeng.last_stats
 
 
 def test_distributed_engine_needs_a_process_group(graph_cache):
