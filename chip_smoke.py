@@ -253,6 +253,7 @@ from repro_torch.graph.datasets import DATASETS  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import bitmap_update as kbu  # noqa: E402
 from repro_torch.kernels import csr_gather as kcg  # noqa: E402
+from repro_torch.kernels import expand_frontier as kef  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import msbfs_propagate as kmod  # noqa: E402
 from repro_torch.kernels import pull_spmv as kps  # noqa: E402
@@ -265,7 +266,8 @@ from repro_torch.launch.step_analysis import StepAnalysis  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 
-# kernel name -> (CUDA source, the TPU kernel it replaces)
+# kernel name -> (CUDA source, the TPU kernel it replaces; None where the
+# reference has none: its frontier expansion is jnp)
 KERNELS = {
     "msbfs_propagate_planes": (
         "src/repro_torch/kernels/csrc/msbfs_propagate.cu",
@@ -288,10 +290,12 @@ KERNELS = {
     "flash_attention": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:67"),
+    "expand_frontier": (
+        "src/repro_torch/kernels/csrc/expand_frontier.cu", None),
 }
 SOURCES = ("msbfs_propagate", "bitmap_update", "csr_gather", "pull_spmv",
-           "flash_attention")
-MODULES = (kmod, kbu, kcg, kps, kfa)
+           "flash_attention", "expand_frontier")
+MODULES = (kmod, kbu, kcg, kps, kfa, kef)
 SEARCH_KEYS = 64                 # Graph500's count of BFS roots per run
 WIDE_BATCH = 256                 # planes outgrow the 50 MB L2 at rmat20
 TILE, BLOCK = 16, 32             # small-case tiling of the kernel tests
@@ -650,25 +654,51 @@ def phase_small(dev) -> int:
     return err
 
 
-def capture_levels(g, roots) -> list:
+def capture_levels(g, roots) -> tuple[list, list]:
     """Run the engine once (kernel path) and return the inputs of every
     propagate call it made, one per level: (frontier, seen, src, tgt,
-    valid, n_edges).  The engine never writes a tensor in place, so the
-    captured inputs stay as they were."""
-    calls = []
-    orig = ops.msbfs_propagate
+    valid, n_edges); and of every expansion, one per level too: (mask,
+    indptr, indices, budget).  The engine never writes a tensor in place,
+    so the captured inputs stay as they were."""
+    calls, expands = [], []
+    orig, orig_x = ops.msbfs_propagate, kef.expand_frontier
 
     def spy(frontier_w, seen_w, src, tgt, valid, **kw):
         calls.append((frontier_w, seen_w, src, tgt, valid,
                       kw.get("n_edges")))
         return orig(frontier_w, seen_w, src, tgt, valid, **kw)
 
-    ops.msbfs_propagate = spy
+    def spy_x(mask, indptr, indices, budget):
+        expands.append((mask, indptr, indices, budget))
+        return orig_x(mask, indptr, indices, budget)
+
+    ops.msbfs_propagate, kef.expand_frontier = spy, spy_x
     try:
         MultiSourceBFSRunner(g, use_kernels=True).run(roots)
     finally:
-        ops.msbfs_propagate = orig
-    return calls
+        ops.msbfs_propagate, kef.expand_frontier = orig, orig_x
+    return calls, expands
+
+
+def expand_row(mask, indptr, indices, budget: int, what: str) -> dict:
+    """The expansion kernels against the plain version on one level's
+    inputs, bit for bit (each output's dtype, shape and slots), and timed
+    as the engine calls them (buffers included) and plain; the bound is
+    ``kef.expand_traffic``'s bytes at the card's bandwidth."""
+    got = kef.expand_frontier(mask, indptr, indices, budget)
+    want = ref.expand_frontier_ref(mask, indptr, indices, budget)
+    for a, b, name in zip(got, want, ("src", "nbr", "valid", "total")):
+        if (a.dtype != b.dtype or a.shape != b.shape
+                or not torch.equal(a, b)):
+            raise AssertionError(f"{what}: expand_frontier {name} differs "
+                                 "from the plain version")
+    nbytes = kef.expand_traffic(mask, indptr, budget)
+    return dict(bytes=nbytes, bound_ms=bound(nbytes)[0], max_abs_err=0,
+                slots=budget, total=int(got[3]), active=int(mask.sum()),
+                ms=time_ms(lambda: kef.expand_frontier(mask, indptr, indices,
+                                                       budget), 5),
+                plain_ms=time_ms(lambda: ref.expand_frontier_ref(
+                    mask, indptr, indices, budget), 1))
 
 
 def bound(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
@@ -713,10 +743,13 @@ def phase_real(g, deg: np.ndarray, graph: str, batch: int, seed: int
     level needs (:func:`k1_bytes`), the first design's padded bound logged
     beside it.  K2's bound (``kmod.tiled_traffic``) counts the message
     of each slot of the tiles' head chunks, the target of each slot whose
-    message is not zero, and its three plane arrays."""
+    message is not zero, and its three plane arrays.  The expansion
+    (``expand_frontier``) is checked and timed at every level of the same
+    wave (:func:`expand_row`) and on the whole vertex set's in-lists, a
+    full-mask pull level."""
     roots = np.random.default_rng(seed).choice(np.flatnonzero(deg > 0),
                                                batch, replace=False)
-    calls = capture_levels(g, roots)
+    calls, expands = capture_levels(g, roots)
     per = {name: [] for name in ("msbfs_propagate_planes",
                                  "msbfs_propagate_planes_tiled")}
     for lvl, (frontier, seen, src, tgt, valid, ne) in enumerate(calls):
@@ -788,6 +821,26 @@ def phase_real(g, deg: np.ndarray, graph: str, batch: int, seed: int
             f"{r2['turn_spread']:.3f}), zero fill {r2['zero_ms']:.4f}; feed "
             f"{feed_ms:.3f} ms, its bucket count {count_ms:.4f} ms)")
         del k2
+    rows_x = []
+    for lvl, (mask, indptr, indices, budget) in enumerate(expands):
+        way = "pull" if indptr is g.in_indptr else "push"
+        r = expand_row(mask, indptr, indices, budget,
+                       f"{graph} B={batch} level {lvl} ({way})")
+        rows_x.append(r)
+        log(f"(c) B={batch} level {lvl} expand_frontier ({way}, "
+            f"{r['active']} vertices, {r['total']} edges, budget "
+            f"{budget}): {r['ms']:.4f} ms as called (bound "
+            f"{r['bound_ms']:.4f}, share {share(r['bound_ms'], r['ms']):.3f};"
+            f" plain {r['plain_ms']:.3f}), bit-exact")
+    e_in = int(g.in_indices.shape[0])
+    full = torch.ones(g.n_pad, dtype=torch.bool, device=g.in_indptr.device)
+    r = expand_row(full, g.in_indptr, g.in_indices,
+                   1 << max(e_in - 1, 1).bit_length(),
+                   f"{graph} full-mask pull")
+    log(f"(c) expand_frontier full-mask pull ({r['total']} edges, budget "
+        f"{r['slots']}): {r['ms']:.4f} ms as called (bound "
+        f"{r['bound_ms']:.4f}, share {share(r['bound_ms'], r['ms']):.3f}; "
+        f"plain {r['plain_ms']:.3f}), bit-exact")
     out = {}
     for name, rows in per.items():
         out[name] = {k: float(np.mean([r[k] for r in rows]))
@@ -814,6 +867,16 @@ def phase_real(g, deg: np.ndarray, graph: str, batch: int, seed: int
             f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms="
             f"{r['bound_ms']:.4f} (bytes={r['bytes']:.0f}) share_of_bound="
             f"{r['bound_ms'] / r['ms']:.3f} library_ms=null{extra}")
+    r = out["expand_frontier"] = {
+        k: float(np.mean([x[k] for x in rows_x]))
+        for k in ("ms", "plain_ms", "bound_ms", "bytes")}
+    r["max_abs_err"] = 0
+    log(f"(c) expand_frontier: mean over {len(rows_x)} levels of one {graph} "
+        f"B={batch} wave, bit-exact on each and on the full-mask pull: "
+        f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms="
+        f"{r['bound_ms']:.4f} (bytes={r['bytes']:.0f}) share_of_bound="
+        f"{r['bound_ms'] / r['ms']:.3f} library_ms=null (as the engine calls "
+        "it, buffers included)")
     return out
 
 
@@ -3712,7 +3775,8 @@ def main(argv=None) -> int:
     small_err = phase_small(dev)
     real = phase_real(g, deg, args.graph, args.batch, args.seed)
     wide = phase_real(g, deg, args.graph, WIDE_BATCH, args.seed)
-    for name in ("msbfs_propagate_planes", "msbfs_propagate_planes_tiled"):
+    for name in ("msbfs_propagate_planes", "msbfs_propagate_planes_tiled",
+                 "expand_frontier"):
         real[name]["max_abs_err"] = max(real[name]["max_abs_err"],
                                         wide[name]["max_abs_err"])
     real["msbfs_propagate_planes_tiled"] = wide["msbfs_propagate_planes_tiled"]
@@ -3727,6 +3791,9 @@ def main(argv=None) -> int:
                              "plan's")
     if not np.array_equal(d["roots"], wave_roots):
         raise AssertionError("serve_bfs drew other roots than expected")
+    if d["launches"]["expand_frontier"] < d["out"]["iterations"]:
+        raise AssertionError(f"(d) expanded {d['launches']['expand_frontier']}"
+                             f" times in {d['out']['iterations']} levels")
 
     # (o) WIDE_BATCH served with both plans; both plans' waves in turns
     o = phase_wide(args.graph, args.seed, dev)
@@ -3749,7 +3816,7 @@ def main(argv=None) -> int:
                                     dev, args.profile)
     # (s) the step analysis, the dry-run and the analytic model
     analysis = phase_analysis(ds, g, deg, d, keys)
-    for name in KERNELS:             # K1-K4: integer work, no library call
+    for name in KERNELS:    # K1-K4, the expansion: integer work, no library
         if name in real:
             real[name].update(bound_by="bytes", library_ms=None)
 
@@ -3774,6 +3841,7 @@ def main(argv=None) -> int:
             + distributed["r1"]["k2_launches"],
         "bitmap_update_batch": i["launches"]["bitmap_update_batch"],
         "bitmap_update": h["launches"]["bitmap_update"],
+        "expand_frontier": d["launches"]["expand_frontier"],
         **{k: real[k]["launches"] for k in ("gather_pages",
                                              "pull_spmv_blocks",
                                              "flash_attention")},

@@ -10,10 +10,14 @@ steps end in the fused P3 update (kernel K4 under ``use_kernels``).
 
 No device function here reads a tensor's value on the host: sizes come
 from Python ints (caps and budgets), so the runners keep their
-one-fetch-per-level protocol.  Two calls still wait for the stream, as
-a host-to-device copy of a Python scalar does: ``expand_edges``'
-``torch.tensor(-1, device=...)`` and ``bitmap.from_indices_dense``'s
-``dense[...] = True`` (the ``syncs_per_level`` metrics count them).
+one-fetch-per-level protocol.  The steps' P1 + P2 is
+``kernels.expand_frontier``: on a CUDA graph hand-written kernels that
+wait for nothing on the host, on the CPU ``compact_indices`` +
+``expand_edges``.  One call still waits for the stream, as a
+host-to-device copy of a Python scalar does: ``bitmap.from_indices_dense``'s
+``dense[...] = True`` in ``BFSRunner``'s steps (the ``syncs_per_level``
+metrics count it); the plain ``expand_edges``' ``torch.tensor(-1,
+device=...)`` runs on the CPU only.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from repro_torch.core.readback import PinnedPool
 from repro_torch.core.scheduler import PUSH, SchedulerConfig, choose_mode_host
 from repro_torch.device import resolve_device
 from repro_torch.graph.csr import CSRGraph, edge_sources
+from repro_torch.kernels import expand_frontier as kef
 from repro_torch.trace import span
 
 INF = 1 << 30
@@ -254,10 +259,9 @@ def push_step(g: LocalGraph, frontier_w, visited_w, level, lvl: int,
     Inputs are never written; ``out`` (K4's buffers, see
     ``kernels.bitmap_update``) must not hold them."""
     with span("expand"):
-        fmask = bitmap.unpack(frontier_w, g.n_pad)
-        active, _ = compact_indices(fmask, g.n_pad)
-        _, nbr, valid, total = expand_edges(active, g.out_indptr,
-                                            g.out_indices, budget)
+        _, nbr, valid, total = kef.expand_frontier(
+            bitmap.unpack(frontier_w, g.n_pad), g.out_indptr, g.out_indices,
+            budget)
     with span("propagate"):
         unvisited = ~bitmap.test_bits(visited_w, nbr.clamp(min=0)) & valid
         cand = bitmap.from_indices_dense(torch.where(unvisited, nbr, -1),
@@ -270,10 +274,9 @@ def pull_step(g: LocalGraph, frontier_w, visited_w, level, lvl: int,
               budget: int, use_kernels: bool = False, out=None):
     """Pull iteration: expand in-lists of unvisited, test frontier bit."""
     with span("expand"):
-        umask = ~bitmap.unpack(visited_w, g.n_pad)
-        unvisited, _ = compact_indices(umask, g.n_pad)
-        child, parent, valid, total = expand_edges(unvisited, g.in_indptr,
-                                                   g.in_indices, budget)
+        child, parent, valid, total = kef.expand_frontier(
+            ~bitmap.unpack(visited_w, g.n_pad), g.in_indptr, g.in_indices,
+            budget)
     with span("propagate"):
         hit = bitmap.test_bits(frontier_w, parent.clamp(min=0)) & valid
         cand = bitmap.from_indices_dense(torch.where(hit, child, -1),

@@ -38,11 +38,12 @@ from repro_torch.core.bitmap import drop_index
 from repro_torch.core.bfs_local import (INF, SV_COUNT, SV_MF, SV_MU, SV_NF,
                                         SV_NU, SV_OVERFLOW, SV_TOTAL,
                                         LocalGraph, compact_indices,
-                                        count_traversed_edges, expand_edges,
+                                        count_traversed_edges,
                                         resolve_use_kernels, validate_roots)
 from repro_torch.core.readback import PinnedPool
 from repro_torch.core.scheduler import (PUSH, SchedulerConfig, choose_mode,
                                         choose_mode_host)
+from repro_torch.kernels import expand_frontier as kef
 from repro_torch.trace import span
 
 
@@ -359,16 +360,15 @@ def vp_init_state(g: LocalGraph, roots: torch.Tensor, program: VertexProgram,
 def push_edges(g: LocalGraph, frontier_w, budget: int):
     """The push step's budgeted edge list: out-lists of any-plane frontier
     vertices.  Returns (src, tgt, valid, total)."""
-    active, _ = compact_indices(bitmap.any_rows(frontier_w), g.n_pad)
-    return expand_edges(active, g.out_indptr, g.out_indices, budget)
+    return kef.expand_frontier(bitmap.any_rows(frontier_w), g.out_indptr,
+                         g.out_indices, budget)
 
 
 def pull_edges(g: LocalGraph, seen_w, nb: int, budget: int):
     """The kernel pull's budgeted edge list: in-lists of some-plane-unseen
     vertices, as (src=parent, tgt=child, valid, total)."""
-    active, _ = compact_indices(_unseen_any(seen_w, nb), g.n_pad)
-    child, parent, valid, total = expand_edges(active, g.in_indptr,
-                                               g.in_indices, budget)
+    child, parent, valid, total = kef.expand_frontier(
+        _unseen_any(seen_w, nb), g.in_indptr, g.in_indices, budget)
     return parent, child, valid, total
 
 
@@ -503,9 +503,12 @@ class VertexProgramRunner:
     statvec): ``result.host_transfers == iterations + 2``.  ``run`` is the
     shared entry and validates the roots once.
 
-    After a run, ``last_stats`` holds the reference's counters and
-    ``last_level_seconds`` the host time of each level (step + statvec
-    fetch; the fetch synchronises, so it covers the device work).  Each
+    After a run, ``last_stats`` holds the reference's counters, the port's
+    ``budget_slots`` (the slots the steps' expansions wrote: their budgets
+    summed, overflowed tries included; ``edges_inspected`` over it is the
+    share that held an edge) and ``last_level_seconds`` the host time of
+    each level (step + statvec fetch; the fetch synchronises, so it
+    covers the device work).  Each
     phase of the packed loop is a ``repro_torch.trace`` span.  On a CUDA
     graph the final readback lands in reused page-locked host memory
     (``core.readback.PinnedPool``; its counts in ``readback_stats`` and
@@ -688,6 +691,7 @@ class VertexProgramRunner:
         mode = PUSH
         lvl = 0
         inspected = 0
+        slots = 0                   # every step's budget, retries included
         push_iters = pull_iters = 0
         overflow_retries = 0
         # no point budgeting past the whole edge array; the overflow loop
@@ -721,6 +725,7 @@ class VertexProgramRunner:
                     corrupt = None
                 # retry from the PRE-step state: steps never write inputs
                 state0 = (frontier, seen, value)
+                slots += step_budget
                 with span("step"):
                     frontier, seen, value, statvec = step(
                         g, *state0, lvl, program, step_budget,
@@ -738,6 +743,7 @@ class VertexProgramRunner:
                     step_budget *= 2   # HBM-reader queue overflow: deepen
                     if budgeted:
                         budget = step_budget
+                    slots += step_budget
                     with span("retry"):
                         frontier, seen, value, statvec = step(
                             g, *state0, lvl, program, step_budget,
@@ -780,6 +786,7 @@ class VertexProgramRunner:
                                pull_iters, dt, overflow_retries, budget,
                                trav)
         self.last_stats["discovery_popcounts"] = pcs
+        self.last_stats["budget_slots"] = slots
         if check:
             self.last_stats["integrity"] = dict(
                 mode=self.integrity, sv_checks=len(pcs),
@@ -852,9 +859,8 @@ def _boolplane_push_step(g: LocalGraph, frontier_w, seen_w, budget: int,
     """Bool-plane push: unpacks the whole frontier, builds a [budget, B]
     bool message array and an [n_pad + 1, B] scatter buffer per level."""
     fmask = bitmap.unpack_rows(frontier_w)            # [n_pad, B']
-    active, _ = compact_indices(bitmap.any_rows(frontier_w), g.n_pad)
-    src, nbr, valid, total = expand_edges(active, g.out_indptr,
-                                          g.out_indices, budget)
+    src, nbr, valid, total = kef.expand_frontier(
+        bitmap.any_rows(frontier_w), g.out_indptr, g.out_indices, budget)
     cand_w = _bool_scatter_planes(g, fmask, src, nbr, valid)
     new, seen2 = _p3_update_ms(cand_w, seen_w, use_kernels)
     return new, seen2, total, total > budget
@@ -866,9 +872,8 @@ def _boolplane_pull_step(g: LocalGraph, frontier_w, seen_w, budget: int,
     once and OR their parents' frontier masks (via bool plane arrays)."""
     nb = frontier_w.shape[1] * bitmap.WORD_BITS
     fmask = bitmap.unpack_rows(frontier_w)
-    active, _ = compact_indices(_unseen_any(seen_w, nb), g.n_pad)
-    child, parent, valid, total = expand_edges(active, g.in_indptr,
-                                               g.in_indices, budget)
+    child, parent, valid, total = kef.expand_frontier(
+        _unseen_any(seen_w, nb), g.in_indptr, g.in_indices, budget)
     cand_w = _bool_scatter_planes(g, fmask, parent, child, valid)
     new, seen2 = _p3_update_ms(cand_w, seen_w, use_kernels)
     return new, seen2, total, total > budget
@@ -932,6 +937,7 @@ class MultiSourceBFSRunner(VertexProgramRunner):
         inspected = 0
         push_iters = pull_iters = 0
         overflow_retries = 0
+        slots = 0
         budget = budget_override or self.init_budget
         t0 = time.perf_counter()
         while True:
@@ -947,6 +953,7 @@ class MultiSourceBFSRunner(VertexProgramRunner):
             while budget < min(need, g.out_indices.shape[0] + 1):
                 budget *= 2
             seen0 = seen
+            slots += budget
             new, seen, total, overflow = step(g, frontier, seen0, budget,
                                               self.use_kernels)
             while bool(self._fetch(overflow)):
@@ -955,6 +962,7 @@ class MultiSourceBFSRunner(VertexProgramRunner):
                         and overflow_retries > self.max_overflow_retries):
                     raise BudgetOverflowError(budget, need, overflow_retries)
                 budget *= 2
+                slots += budget
                 new, seen, total, overflow = step(g, frontier, seen0, budget,
                                                   self.use_kernels)
             level = level_commit(level, bitmap.unpack_rows(new, b), lvl)
@@ -968,8 +976,10 @@ class MultiSourceBFSRunner(VertexProgramRunner):
         self._sync()
         dt = time.perf_counter() - t0
         levels = self._fetch(level[: g.n]).T        # [B, n]
-        return self._result(levels, b, lvl, inspected, push_iters,
-                            pull_iters, dt, overflow_retries, budget)
+        res = self._result(levels, b, lvl, inspected, push_iters,
+                           pull_iters, dt, overflow_retries, budget)
+        self.last_stats["budget_slots"] = slots
+        return res
 
 
 # ---------------------------------------------------------------------------

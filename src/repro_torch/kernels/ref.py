@@ -206,3 +206,13 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s_.masked_fill_(mask, NEG_INF)
     s_ = torch.softmax(s_, dim=-1)
     return torch.bmm(s_, v.to(torch.float32)).to(q.dtype)
+
+
+def expand_frontier_ref(mask: torch.Tensor, indptr: torch.Tensor,
+                        indices: torch.Tensor, budget: int):
+    """Plain version of ``expand_frontier``: the engine's P1 compaction of
+    ``mask`` and P2 expansion of those vertices' lists into ``budget``
+    slots, as ``core.bfs_local`` writes them."""
+    from repro_torch.core.bfs_local import compact_indices, expand_edges
+    active, _ = compact_indices(mask, mask.numel())
+    return expand_edges(active, indptr, indices, budget)

@@ -1228,3 +1228,154 @@ def test_readback_lands_in_reused_page_locked_blocks(dev):
         assert res.host_transfers == res.iterations + 2
     assert single.readback_stats["grown"] == 2
     assert torch.from_numpy(level).is_pinned()
+
+
+# -- the frontier expansion: kernels.expand_frontier --------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget_kind", ["below", "equal", "above"])
+@pytest.mark.parametrize("mask_kind", ["random", "empty", "full"])
+@pytest.mark.parametrize("direction", ["csr", "csc"])
+def test_expand_frontier_equals_plain(dev, direction, mask_kind,
+                                      budget_kind):
+    """``test_torch_expand.py``'s cases on the card: the kernels against
+    ``compact_indices`` + ``expand_edges`` on the same card tensors, bit
+    for bit, one launch a call."""
+    from test_torch_expand import assert_same, case_graph, case_inputs
+    from repro_torch.kernels import expand_frontier as kef
+    args = case_inputs(case_graph(device=dev), direction, mask_kind,
+                       budget_kind)
+    kef.reset_launches()
+    got = kef.expand_frontier(*args)
+    torch.cuda.synchronize()
+    assert kef.LAUNCHES["expand_frontier"] == 1
+    assert_same(got, ref.expand_frontier_ref(*args))
+
+
+@pytest.mark.cuda
+def test_expand_frontier_refuses_misaligned_outputs(dev):
+    """The launch writes src / nbr in 16-byte and valid in 4-byte stores:
+    an output off that alignment (a view one element into its storage) is
+    refused with cudaErrorMisalignedAddress and nothing is written."""
+    from test_torch_expand import case_graph, case_inputs
+    from repro_torch.kernels import expand_frontier as kef
+    mask, indptr, indices, budget = case_inputs(case_graph(device=dev), "csr",
+                                                "full", "equal")
+    for key in ("src", "valid"):
+        bufs = kef.buffers(mask, budget + 1)
+        bufs[key] = bufs[key][1:]
+        before = bufs[key].clone()
+        err = kef.launch(mask, indptr, indices, budget, bufs)
+        torch.cuda.synchronize()
+        assert err == 716, key                  # cudaErrorMisalignedAddress
+        assert torch.equal(bufs[key], before), key
+
+
+def _kron_graph(dev, scale: int, edge_factor: int, seed: int):
+    """The wave cells' Graph500 graph at ``scale``: (int32 indptr, indices)
+    of the undirected CSR, built on the card by the benchmark's
+    generator."""
+    import json
+    from pathlib import Path
+    from bfsbench import kron
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "bfsbench"
+                      / "configs" / f"kron22-{edge_factor}.json").read_text())
+    csr, _ = kron.build_graph(dict(cfg, scale=scale), seed, dev)
+    return csr.indptr.to(torch.int32), csr.indices
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge_factor", [16, 64])
+def test_expand_frontier_on_the_wave_graphs(dev, edge_factor):
+    """The wave cells' graphs at scale 19 (2**19 vertices, 16 or 64 edges a
+    vertex, hubs and isolated vertices): a pull level's unseen mask, a
+    push level's sparse frontier and the whole vertex set, each under the
+    engine's power-of-two budget, one below the total and a tail level's
+    budget far above it; kernel and plain equal bit for bit."""
+    from test_torch_expand import assert_same
+    from repro_torch.kernels import expand_frontier as kef
+    indptr, indices = _kron_graph(dev, 19, edge_factor, 20260 + edge_factor)
+    n = indptr.numel() - 1
+    deg = (indptr[1:] - indptr[:-1]).cpu().numpy()
+    rng = np.random.default_rng(edge_factor)
+    for share in (0.6, 0.01, 1.0, 0.001):
+        mask = rng.random(n) < share
+        total = int(deg[mask].sum())
+        pow2 = 1 << max(total - 1, 1).bit_length()
+        budgets = [pow2, max(total // 3, 1)] + ([pow2 << 6] if share < 0.01
+                                                 else [])
+        m = torch.from_numpy(mask).to(dev)
+        for budget in budgets:
+            got = kef.expand_frontier(m, indptr, indices, budget)
+            want = ref.expand_frontier_ref(m, indptr, indices, budget)
+            torch.cuda.synchronize()
+            assert_same(got, want)
+            assert int(got[3]) == total
+            del got, want
+
+
+@pytest.mark.cuda
+def test_wave_expands_through_the_kernels(dev):
+    """One wave of 64 roots on the card equals ``msbfs_reference``, and
+    ``expand_frontier`` launched once a budgeted level (on the card every
+    level is budgeted): the wave never calls ``expand_edges``."""
+    from repro_torch.core import bfs_local, msbfs_reference
+    from repro_torch.kernels import expand_frontier as kef
+    indptr, indices = _kron_graph(dev, 16, 16, 7)
+    n = indptr.numel() - 1
+    csr = csr_from_edges(
+        np.repeat(np.arange(n), np.diff(indptr.cpu().numpy())),
+        indices.cpu().numpy(), n)
+    g = build_local_graph(csr, transpose_csr(csr), device=dev)
+    deg = np.diff(csr.indptr)
+    roots = np.random.default_rng(3).choice(np.flatnonzero(deg > 0), 64,
+                                            replace=False)
+    runner = MultiSourceBFSRunner(g, init_budget=1 << 10)
+    plain_edges = bfs_local.expand_edges
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append(args[3])
+        return plain_edges(*args, **kw)
+
+    bfs_local.expand_edges = spy
+    try:
+        kef.reset_launches()
+        res = runner.run(roots)
+    finally:
+        bfs_local.expand_edges = plain_edges
+    assert calls == []
+    assert kef.LAUNCHES["expand_frontier"] == \
+        res.iterations + res.overflow_retries > 0
+    np.testing.assert_array_equal(
+        res.levels, msbfs_reference(g, roots).cpu().numpy())
+    assert runner.last_stats["budget_slots"] >= res.edges_inspected
+
+
+@pytest.mark.cuda
+def test_expand_waits_for_nothing_on_the_host(dev):
+    """The wave's ``expand`` (``push_edges``, ``pull_edges``) under
+    ``torch.cuda.set_sync_debug_mode("error")``: no copy from the host and
+    no sync.  The control, the plain expansion on the same card tensors,
+    is refused there (its ``torch.tensor(-1, device=...)``)."""
+    from test_torch_expand import case_graph
+    from repro_torch.core import vertex_program as vp
+    g = case_graph(device=dev)
+    rng = np.random.default_rng(5)
+    frontier = planes_from_numpy(
+        (_words((g.n_pad, 2), 21) & (rng.random((g.n_pad, 1)) < 0.3)
+         * 0xFFFFFFFF).astype(np.uint32), dev)
+    seen = planes_from_numpy(_words((g.n_pad, 2), 22), dev) | frontier
+    mask = torch.ones(g.n_pad, dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        push = vp.push_edges(g, frontier, 4096)
+        pull = vp.pull_edges(g, seen, 64, 4096)
+        with pytest.raises(RuntimeError):
+            ref.expand_frontier_ref(mask, g.out_indptr, g.out_indices, 4096)
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+    torch.cuda.synchronize()
+    assert int(push[3]) > 0 and int(pull[3]) > 0

@@ -121,7 +121,8 @@ def test_engine_matches_reference_engine(batch, policy):
     for a, b in zip(t_svs, j_svs):                     # the statvecs
         np.testing.assert_array_equal(a, b)
     want = {k: v for k, v in jr.last_stats.items() if k != "seconds"}
-    got = {k: v for k, v in tr.last_stats.items() if k != "seconds"}
+    got = {k: v for k, v in tr.last_stats.items()
+           if k not in ("seconds", "budget_slots")}     # the port's own
     assert got == want
     assert tres.host_transfers == tres.iterations + 2
     assert len(tr.last_level_seconds) == tres.iterations
@@ -140,6 +141,9 @@ def test_engine_matches_reference_engine(batch, policy):
     need = [int(sv[tbl.SV_MF] if m == PUSH else sv[tbl.SV_MU])
             for sv, m in zip(j_svs, modes)]
     assert kres.edges_inspected == sum(need)
+    # every level expanded a budget at least its need: the written slots
+    # hold every inspected edge
+    assert kr.last_stats["budget_slots"] >= kres.edges_inspected
     assert kres.host_transfers == kres.iterations + 2
     assert kres.iterations == jres.iterations
     assert (kres.push_iters, kres.pull_iters) == (jres.push_iters,
@@ -191,7 +195,8 @@ def test_sparse_pull_matches_reference(tmp_path, monkeypatch):
     assert len(t_svs) == len(j_svs) + 1
     for a, b in zip(t_svs, j_svs):
         np.testing.assert_array_equal(a, b)
-    assert ({k: v for k, v in tr.last_stats.items() if k != "seconds"}
+    assert ({k: v for k, v in tr.last_stats.items()
+             if k not in ("seconds", "budget_slots")}
             == {k: v for k, v in jr.last_stats.items() if k != "seconds"})
     e_in = int(tg.in_indices.shape[0])
     assert any(int(sv[tbl.SV_TOTAL]) != e_in for sv in t_svs[1:-1]), \

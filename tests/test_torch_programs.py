@@ -88,7 +88,10 @@ def _recording(runner):
 
 
 def _stats(runner):
-    return {k: v for k, v in runner.last_stats.items() if k != "seconds"}
+    """``last_stats`` less its wall-clock seconds and the port's own
+    ``budget_slots`` (the reference counts no written slots)."""
+    return {k: v for k, v in runner.last_stats.items()
+            if k not in ("seconds", "budget_slots")}
 
 
 def _same_run(jr, tr, roots, **run_kw):

@@ -12,6 +12,7 @@ import jax.numpy as jnp                                     # noqa: E402
 from repro.launch.hlo_analysis import analyze_hlo_text      # noqa: E402
 from repro_torch.kernels import bitmap_update as kbu        # noqa: E402
 from repro_torch.kernels import csr_gather as kcg           # noqa: E402
+from repro_torch.kernels import expand_frontier as kef      # noqa: E402
 from repro_torch.kernels import flash_attention as kfa      # noqa: E402
 from repro_torch.kernels import msbfs_propagate as kmod     # noqa: E402
 from repro_torch.kernels import ops, ref                    # noqa: E402
@@ -214,12 +215,24 @@ def _k7():
             ref.flash_attention_ref(q, k, v, causal=True))
 
 
+def _expand():
+    # 9 vertices, lists of 0, 3, 1, 0, 2, ... ; the mask takes 1, 2, 4, 7:
+    # 3 + 1 + 2 + 2 = 8 edges into a budget of 6
+    indptr = torch.tensor([0, 0, 3, 4, 4, 6, 6, 6, 8, 9], dtype=torch.int32)
+    indices = torch.arange(9, dtype=torch.int32)
+    mask = torch.zeros(9, dtype=torch.bool)
+    mask[[1, 2, 4, 7]] = True
+    nbytes = 9 + 4 * 10 + 4 * 6 + 9 * 6 + 4
+    return (kef.expand_frontier, (mask, indptr, indices, 6), nbytes, 0.0,
+            ref.expand_frontier_ref(mask, indptr, indices, 6))
+
+
 @pytest.mark.parametrize("case,name", [
     (_k1, "msbfs_propagate_planes"), (_k2, "msbfs_propagate_planes_tiled"),
     (_k3, "bitmap_update_batch"), (_k3_rows, "bitmap_update_batch"),
     (_k4, "bitmap_update"),
     (_k5, "gather_pages"), (_k6, "pull_spmv_blocks"),
-    (_k7, "flash_attention")])
+    (_k7, "flash_attention"), (_expand, "expand_frontier")])
 def test_kernel_call_counts_once_at_its_own_bytes(case, name):
     """Each wrapper's plain body (the CPU's) counts as one op at the bytes
     and FLOPs its bound counts; none of the body's aten ops is counted,
